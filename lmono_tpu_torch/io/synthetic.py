@@ -1,0 +1,242 @@
+"""Deterministic synthetic world simulator: ray-cast LiDAR, in PyTorch.
+
+Port of the LiDAR half of `lmono_tpu/io/synthetic.py`: an analytic world of
+axis-aligned building boxes, vertical poles and a ground plane, ray-cast
+exactly into a per-ring range image, plus the ground-truth circuit
+trajectory.  The scene comes from numpy's `RandomState`, so its arrays are
+bit-equal to the JAX package's.  Scan noise comes from a `torch.Generator`
+(or an explicit standard-normal tensor), since JAX keys cannot be replayed.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from lmono_tpu_torch.config import LidarConfig
+from lmono_tpu_torch.utils.lie import Pose, quat_mul, quat_rotate, so3_exp_quat
+
+_BIG = 1e9
+
+
+class Scene(NamedTuple):
+    """Axis-aligned world geometry (fixed shapes; mask via validity flags)."""
+
+    box_min: torch.Tensor      # (B, 3) lower corners
+    box_max: torch.Tensor      # (B, 3) upper corners
+    box_valid: torch.Tensor    # (B,) bool
+    cyl_center: torch.Tensor   # (C, 2) x,y of vertical poles
+    cyl_radius: torch.Tensor   # (C,)
+    cyl_height: torch.Tensor   # (C,)
+    cyl_valid: torch.Tensor    # (C,) bool
+    ground_z: torch.Tensor     # () scalar
+
+
+def make_city_scene(n_blocks: int = 24, n_poles: int = 40,
+                    extent: float = 90.0, seed: int = 7,
+                    device=None) -> Scene:
+    """A deterministic 'city block' scene around a central circuit road."""
+    rng = np.random.RandomState(seed)
+    boxes_min, boxes_max = [], []
+    # buildings on a grid, leaving a ring road free around radius ~ 28-40 m
+    grid = np.arange(-extent, extent + 1, 30.0)
+    for gx in grid:
+        for gy in grid:
+            r = np.hypot(gx, gy)
+            if 22.0 < r < 46.0:   # keep the circuit road clear
+                continue
+            if r < 8.0:
+                continue
+            jx, jy = rng.uniform(-4, 4, 2)
+            sx, sy = rng.uniform(6, 14, 2)
+            sz = rng.uniform(6, 18)
+            cx, cy = gx + jx, gy + jy
+            boxes_min.append([cx - sx / 2, cy - sy / 2, 0.0])
+            boxes_max.append([cx + sx / 2, cy + sy / 2, sz])
+    boxes_min = np.array(boxes_min[:n_blocks], np.float32)
+    boxes_max = np.array(boxes_max[:n_blocks], np.float32)
+    nb = len(boxes_min)
+    if nb < n_blocks:
+        pad = n_blocks - nb
+        boxes_min = np.concatenate([boxes_min, np.zeros((pad, 3), np.float32)])
+        boxes_max = np.concatenate([boxes_max, np.zeros((pad, 3), np.float32)])
+    box_valid = np.arange(n_blocks) < nb
+
+    # poles along the ring road edges
+    ang = rng.uniform(0, 2 * np.pi, n_poles)
+    rad = rng.choice([24.0, 43.0], n_poles) + rng.uniform(-1, 1, n_poles)
+    cyl_center = np.stack([rad * np.cos(ang), rad * np.sin(ang)], -1).astype(np.float32)
+    cyl_radius = rng.uniform(0.1, 0.25, n_poles).astype(np.float32)
+    cyl_height = rng.uniform(3.0, 7.0, n_poles).astype(np.float32)
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    return Scene(
+        box_min=dev(boxes_min),
+        box_max=dev(boxes_max),
+        box_valid=dev(box_valid),
+        cyl_center=dev(cyl_center),
+        cyl_radius=dev(cyl_radius),
+        cyl_height=dev(cyl_height),
+        cyl_valid=torch.ones(n_poles, dtype=torch.bool, device=device),
+        ground_z=torch.zeros((), dtype=torch.float32, device=device),
+    )
+
+
+# --------------------------------------------------------------------------
+# Ray casting
+# --------------------------------------------------------------------------
+
+def _nonzero(x: torch.Tensor, eps: float) -> torch.Tensor:
+    return torch.where(torch.abs(x) < eps, torch.full_like(x, eps), x)
+
+
+def _ray_ground(o, d, ground_z):
+    """Ray-plane z=ground_z. o,d: (...,3). Returns t (...,) (_BIG if miss)."""
+    dz = d[..., 2]
+    t = (ground_z - o[..., 2]) / _nonzero(dz, 1e-9)
+    return torch.where((t > 1e-3) & (dz < -1e-6), t, torch.full_like(t, _BIG))
+
+
+def _ray_boxes(o, d, bmin, bmax, valid):
+    """Slab-method ray-AABB. o,d: (...,3); boxes (B,3). Returns min t (...)."""
+    o = o[..., None, :]
+    d = d[..., None, :]
+    inv = 1.0 / _nonzero(d, 1e-9)
+    t0 = (bmin - o) * inv
+    t1 = (bmax - o) * inv
+    tnear = torch.amax(torch.minimum(t0, t1), dim=-1)
+    tfar = torch.amin(torch.maximum(t0, t1), dim=-1)
+    hit = (tnear <= tfar) & (tfar > 1e-3) & valid
+    t = torch.where(tnear > 1e-3, tnear, tfar)   # inside a box → exit face
+    return torch.amin(torch.where(hit, t, torch.full_like(t, _BIG)), dim=-1)
+
+
+def _ray_cyls(o, d, center, radius, height, valid):
+    """Vertical finite cylinders. Returns min t (...)."""
+    ox = o[..., None, 0] - center[:, 0]
+    oy = o[..., None, 1] - center[:, 1]
+    dx = d[..., None, 0]
+    dy = d[..., None, 1]
+    a = dx * dx + dy * dy
+    b = 2.0 * (ox * dx + oy * dy)
+    c = ox * ox + oy * oy - radius * radius
+    disc = b * b - 4 * a * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    a_safe = torch.where(a < 1e-12, torch.full_like(a, 1e-12), a)
+    t = (-b - sq) / (2 * a_safe)
+    z = o[..., None, 2] + t * d[..., None, 2]
+    hit = (disc > 0) & (t > 1e-3) & (z > 0.0) & (z < height) & valid
+    return torch.amin(torch.where(hit, t, torch.full_like(t, _BIG)), dim=-1)
+
+
+def ray_cast(scene: Scene, origins: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Closest-hit distance for rays (...,3)+(...,3) → (...)."""
+    return torch.minimum(
+        _ray_ground(origins, dirs, scene.ground_z),
+        torch.minimum(
+            _ray_boxes(origins, dirs, scene.box_min, scene.box_max,
+                       scene.box_valid),
+            _ray_cyls(origins, dirs, scene.cyl_center, scene.cyl_radius,
+                      scene.cyl_height, scene.cyl_valid),
+        ),
+    )
+
+
+# --------------------------------------------------------------------------
+# Sensor
+# --------------------------------------------------------------------------
+
+def lidar_ray_dirs(cfg: LidarConfig, device=None) -> torch.Tensor:
+    """Sensor-frame unit ray directions, (rings, horiz_res, 3).
+
+    Sensor frame: x forward, y left, z up (velodyne convention).  The grids
+    are f32 like the JAX package's, but may differ from `jnp.linspace` in
+    the last ulp.
+    """
+    lo, hi = cfg.vertical_fov_deg
+    elev = torch.deg2rad(torch.linspace(hi, lo, cfg.num_rings,
+                                        dtype=torch.float32, device=device))
+    azim = torch.linspace(-math.pi, math.pi, cfg.horiz_res + 1,
+                          dtype=torch.float32, device=device)[:-1]
+    ce, se = torch.cos(elev)[:, None], torch.sin(elev)[:, None]
+    ca, sa = torch.cos(azim)[None, :], torch.sin(azim)[None, :]
+    return torch.stack(
+        [ce * ca, ce * sa, se.expand(cfg.num_rings, cfg.horiz_res)], dim=-1)
+
+
+def simulate_lidar(scene: Scene, pose: Pose, cfg: LidarConfig,
+                   noise_std: float = 0.01,
+                   generator: torch.Generator | None = None,
+                   noise: torch.Tensor | None = None) -> dict:
+    """One LiDAR sweep from world-frame sensor `pose`.
+
+    Range noise is `noise_std` times a standard-normal (rings, W) tensor:
+    `noise` if given, else one drawn from `generator`; with neither, the
+    sweep is noise-free.
+
+    Returns dict with:
+      ranges  (rings, W)   — measured range, 0 where invalid/out of range
+      points  (rings, W, 3)— sensor-frame xyz (0 where invalid)
+      valid   (rings, W)   — bool
+    """
+    device = pose.t.device
+    dirs_s = lidar_ray_dirs(cfg, device)
+    dirs_w = quat_rotate(pose.q[None, None, :], dirs_s)
+    origin = pose.t.expand(dirs_w.shape)
+    t = ray_cast(scene, origin, dirs_w)
+    if noise is None and generator is not None:
+        noise = torch.randn(t.shape, generator=generator, dtype=t.dtype,
+                            device=device)
+    if noise is not None and noise_std > 0:
+        t = t + noise_std * noise
+    valid = (t > cfg.min_range) & (t < cfg.max_range)
+    ranges = torch.where(valid, t, torch.zeros_like(t))
+    points = dirs_s * ranges[..., None]
+    return {"ranges": ranges, "points": points, "valid": valid}
+
+
+# --------------------------------------------------------------------------
+# Trajectory and rig
+# --------------------------------------------------------------------------
+
+def circuit_trajectory(n_frames: int, radius: float = 32.0, dt: float = 0.1,
+                       speed: float = 8.0, z: float = 1.7,
+                       wobble: float = 0.15, device=None) -> Pose:
+    """Ground-truth LiDAR-frame trajectory: a circuit with gentle wobble.
+
+    Returns a batched Pose with leading dim n_frames.  The sensor x-axis
+    points along the direction of travel (velodyne convention).
+    """
+    t = torch.arange(n_frames, dtype=torch.float32, device=device) * dt
+    theta = speed * t / radius
+    # wobble makes pitch/roll and z vary slightly → exercises full 6-DoF
+    x = radius * torch.cos(theta)
+    y = radius * torch.sin(theta)
+    zz = z + wobble * torch.sin(3.1 * theta)
+    pos = torch.stack([x, y, zz], dim=-1)
+    yaw = theta + math.pi / 2.0
+    pitch = wobble * 0.2 * torch.cos(3.1 * theta)
+    roll = wobble * 0.15 * torch.sin(2.3 * theta)
+    zero = torch.zeros_like(yaw)
+    q_yaw = so3_exp_quat(torch.stack([zero, zero, yaw], -1))
+    q_pitch = so3_exp_quat(torch.stack([zero, pitch, zero], -1))
+    q_roll = so3_exp_quat(torch.stack([roll, zero, zero], -1))
+    q = quat_mul(q_yaw, quat_mul(q_pitch, q_roll))
+    return Pose(pos, q)
+
+
+def synthetic_T_CL(device=None) -> Pose:
+    """Camera-from-laser extrinsic of the synthetic rig: the camera looks
+    forward (+x sensor), as on the KITTI mounting, with a small lever arm."""
+    R = torch.tensor([
+        [0.0, -1.0, 0.0],
+        [0.0, 0.0, -1.0],
+        [1.0, 0.0, 0.0],
+    ], dtype=torch.float32, device=device)
+    t = torch.tensor([0.06, -0.05, 0.27], dtype=torch.float32, device=device)
+    return Pose.from_Rt(R, t)

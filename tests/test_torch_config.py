@@ -1,0 +1,70 @@
+"""The port's config tree equals the JAX package's, and the port imports no
+JAX.  Exact equality: the configs are plain Python values."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import pytest
+
+import lmono_tpu.config as jcfg
+import lmono_tpu_torch.config as tcfg
+from lmono_tpu_torch.convert import config_from_json
+
+_CLASSES = ["LidarConfig", "CameraConfig", "TrackerConfig", "EstimatorConfig",
+            "LoopConfig", "MappingConfig", "ParallelConfig", "SystemConfig"]
+
+_PRESETS = ([("synthetic_config", ()), ("kitti_scale_config", ()),
+             ("hk_config", ())]
+            + [("kitti_config", (s,)) for s in range(9)])
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("name", _CLASSES)
+def test_dataclass_fields_and_defaults_match(name):
+    fj = dataclasses.fields(getattr(jcfg, name))
+    ft = dataclasses.fields(getattr(tcfg, name))
+    assert [f.name for f in fj] == [f.name for f in ft]
+    # default-constructed trees compare field by field
+    assert (dataclasses.asdict(getattr(jcfg, name)())
+            == dataclasses.asdict(getattr(tcfg, name)()))
+
+
+@pytest.mark.parametrize("fn,args", _PRESETS)
+def test_presets_match(fn, args):
+    a = dataclasses.asdict(getattr(jcfg, fn)(*args))
+    b = dataclasses.asdict(getattr(tcfg, fn)(*args))
+    assert a == b
+
+
+def test_from_json_round_trips_across_packages():
+    cfg = jcfg.kitti_scale_config()
+    port = config_from_json(cfg.to_json())
+    assert dataclasses.asdict(port) == dataclasses.asdict(cfg)
+    assert tcfg.SystemConfig.from_json(port.to_json()) == port
+    assert jcfg.SystemConfig.from_json(port.to_json()) == cfg
+
+
+def test_port_imports_no_jax():
+    modules = [
+        "lmono_tpu_torch", "lmono_tpu_torch.config", "lmono_tpu_torch.convert",
+        "lmono_tpu_torch.utils.lie", "lmono_tpu_torch.io.synthetic",
+        "lmono_tpu_torch.eval.ate", "lmono_tpu_torch.eval.kitti_metrics",
+        "lmono_tpu_torch.lidar.features", "lmono_tpu_torch.lidar.registration",
+        "lmono_tpu_torch.lidar.odometry", "lmono_tpu_torch.ops.knn",
+        "lmono_tpu_torch.ops.voxelmap", "lmono_tpu_torch.ops.cuda.knn",
+    ]
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'lmono_tpu'))\n"
+            "assert not bad, bad\n"
+            "import torch\n"
+            "assert not torch.backends.cuda.matmul.allow_tf32\n"
+            "assert not torch.backends.cudnn.allow_tf32\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

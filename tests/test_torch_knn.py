@@ -1,0 +1,159 @@
+"""Exact KNN of the port (`lmono_tpu_torch.ops.knn`) against the JAX
+package's CPU path (`lmono_tpu.ops.knn.knn`) and its Pallas kernel in
+interpret mode (`knn_pallas`, as `tests/test_pallas_knn.py` runs it).
+
+Tolerances: rtol 1e-4 / atol 1e-3 on sorted d² (the references use the
+q²−2q·t+t² expansion, the port the difference form), and equal index sets
+wherever d² < 1e11 (missing neighbours are 1e12 in every version).  The
+`gpu` test holds the CUDA kernel to the plain version at rtol 1e-5 /
+atol 1e-4: both compute the difference form in f32.  The JAX references
+are imported inside the tests that use them, so that the `gpu` test also
+runs on a host without JAX:
+    python -m pytest tests/test_torch_knn.py -m gpu --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lmono_tpu_torch.ops import knn as tk
+
+
+def jax_knn(*args, **kw):
+    from lmono_tpu.ops.knn import knn
+
+    return knn(*args, **kw)
+
+
+def knn_pallas(*args, **kw):
+    from lmono_tpu.ops.pallas.knn import knn_pallas
+
+    return knn_pallas(*args, **kw)
+
+
+RTOL, ATOL = 1e-4, 1e-3
+
+
+def _case(seed, Q, M, keep, scale=10.0, offset=0.0):
+    rng = np.random.default_rng(seed)
+    q = (rng.normal(size=(Q, 3)) * scale + offset).astype(np.float32)
+    t = (rng.normal(size=(M, 3)) * scale + offset).astype(np.float32)
+    mask = rng.random(M) < keep
+    return q, t, mask
+
+
+def _check(d_ref, i_ref, d, i):
+    d_ref, i_ref = np.asarray(d_ref), np.asarray(i_ref)
+    d, i = d.numpy(), i.numpy()
+    np.testing.assert_allclose(np.sort(d, 1), np.sort(d_ref, 1), rtol=RTOL, atol=ATOL)
+    for r in range(d.shape[0]):
+        assert (set(i[r][d[r] < 1e11].tolist())
+                == set(i_ref[r][d_ref[r] < 1e11].tolist())), r
+
+
+@pytest.mark.parametrize("Q,M,keep", [(70, 300, 0.85), (128, 512, 1.0),
+                                      (33, 500, 0.5)])
+def test_plain_knn_matches_jax(Q, M, keep):
+    q, t, mask = _case(Q, Q, M, keep)
+    d, i = tk.knn(torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(mask), 5)
+    assert d.dtype == torch.float32 and i.dtype == torch.int32
+    assert (np.diff(d.numpy(), axis=1) >= 0).all()
+    _check(*jax_knn(q, t, mask, 5), d, i)
+    _check(*knn_pallas(q, t, mask, k=5, chunk=128, tq=8, interpret=True), d, i)
+
+
+def test_plain_knn_chunking_does_not_change_result():
+    q, t, mask = _case(3, 64, 500, 0.8)
+    args = (torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(mask), 5)
+    d1, i1 = tk.knn_plain(*args, chunk=4096)
+    d2, i2 = tk.knn_plain(*args, chunk=37)
+    assert torch.equal(d1, d2) and torch.equal(i1, i2)
+
+
+def test_fewer_than_k_valid_rows():
+    q, t, _ = _case(4, 16, 40, 1.0)
+    mask = np.zeros(40, bool)
+    mask[[3, 17, 31]] = True
+    d, i = tk.knn(torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(mask), 5)
+    assert (d[:, 3:] == 1e12).all() and (i[:, 3:] == 0).all()
+    assert (d[:, :3] < 1e11).all()
+    assert set(i[0, :3].tolist()) == {3, 17, 31}
+    _check(*jax_knn(q, t, mask, 5), d, i)
+    _check(*knn_pallas(q, t, mask, k=5, chunk=8, tq=8, interpret=True), d, i)
+
+
+def test_exact_ties_go_to_earliest_index():
+    # bank rows 2, 5, 7, 9 and 12 coincide; the query sits on them
+    rng = np.random.default_rng(5)
+    t = rng.normal(size=(16, 3)).astype(np.float32) * 50
+    t[[2, 5, 7, 9, 12]] = [1.0, 2.0, 3.0]
+    q = np.array([[1.0, 2.0, 3.0]], np.float32)
+    mask = np.ones(16, bool)
+    mask[5] = False
+    d, i = tk.knn(torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(mask), 3)
+    assert i[0].tolist() == [2, 7, 9] and (d[0] == 0).all()
+    d_ref, i_ref = jax_knn(q, t, mask, 3)
+    assert np.asarray(i_ref)[0].tolist() == [2, 7, 9]
+    d_p, i_p = knn_pallas(q, t, mask, k=3, chunk=8, tq=8, interpret=True)
+    assert np.asarray(i_p)[0].tolist() == [2, 7, 9]
+    # ties across chunk boundaries, too
+    d2, i2 = tk.knn_plain(torch.from_numpy(q), torch.from_numpy(t),
+                          torch.from_numpy(mask), 3, chunk=4)
+    assert i2[0].tolist() == [2, 7, 9]
+
+
+def test_center_recentring_at_world_scale():
+    q, t, mask = _case(6, 100, 400, 0.9, scale=5.0, offset=1000.0)
+    c = np.full(3, 1000.0, np.float32)
+    tq, tt, tm, tc = (torch.from_numpy(x) for x in (q, t, mask, c))
+    d, i = tk.knn(tq, tt, tm, 5, center=tc)
+    d_ref, i_ref = jax_knn(q, t, mask, 5, center=c)
+    _check(d_ref, i_ref, d, i)
+    # recentring is exact for distances: same neighbours as the raw call
+    d0, i0 = tk.knn(tq - tc, tt - tc, tm, 5)
+    assert torch.equal(d, d0) and torch.equal(i, i0)
+
+
+def test_nn1():
+    q, t, mask = _case(7, 50, 200, 0.7)
+    d, i = tk.nn1(torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(mask))
+    d5, i5 = tk.knn(torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(mask), 5)
+    assert torch.equal(d, d5[:, 0]) and torch.equal(i, i5[:, 0])
+
+
+def test_cpu_tensors_take_the_plain_version():
+    q, t, mask = _case(8, 8, 32, 1.0)
+    before = tk.knn_plain_calls
+    tk.knn(torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(mask), 5)
+    assert tk.knn_plain_calls == before + 1
+
+
+def test_cuda_wrapper_rejects_cpu_tensors():
+    from lmono_tpu_torch.ops.cuda.knn import knn_cuda
+
+    q, t, mask = _case(9, 8, 32, 1.0)
+    with pytest.raises(ValueError):
+        knn_cuda(torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(mask), 5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q,M,keep", [(1536, 32768, 0.9), (777, 3001, 0.001)])
+def test_cuda_kernel_matches_plain(Q, M, keep):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lmono_tpu_torch.ops.cuda import knn as ck
+
+    q, t, mask = _case(10, Q, M, keep, scale=20.0, offset=100.0)
+    dev = torch.device("cuda")
+    args = [torch.from_numpy(x).to(dev) for x in (q, t, mask)]
+    before = ck.knn_kernel_launches
+    d, i = tk.knn(*args, 5)
+    assert ck.knn_kernel_launches == before + 1
+    d_p, i_p = tk.knn_plain(*args, 6)
+    d, i, d_p, i_p = (x.cpu() for x in (d, i, d_p, i_p))
+    torch.testing.assert_close(d, d_p[:, :5], rtol=1e-5, atol=1e-4)
+    gap = (d_p[:, 5] - d_p[:, 4]) > 1e-4
+    found = d < 1e11
+    sk = torch.sort(torch.where(found, i, -1), 1).values[gap]
+    sp = torch.sort(torch.where(found, i_p[:, :5], -1), 1).values[gap]
+    assert torch.equal(sk, sp)
