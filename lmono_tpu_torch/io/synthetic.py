@@ -1,11 +1,14 @@
-"""Deterministic synthetic world simulator: ray-cast LiDAR, in PyTorch.
+"""Deterministic synthetic world simulator: ray-cast LiDAR and camera, in
+PyTorch.
 
-Port of the LiDAR half of `lmono_tpu/io/synthetic.py`: an analytic world of
-axis-aligned building boxes, vertical poles and a ground plane, ray-cast
-exactly into a per-ring range image, plus the ground-truth circuit
-trajectory.  The scene comes from numpy's `RandomState`, so its arrays are
-bit-equal to the JAX package's.  Scan noise comes from a `torch.Generator`
-(or an explicit standard-normal tensor), since JAX keys cannot be replayed.
+Port of `lmono_tpu/io/synthetic.py`: an analytic world of axis-aligned
+building boxes, vertical poles and a ground plane, ray-cast exactly into a
+per-ring range image or a pinhole camera image with a procedural texture,
+plus the ground-truth circuit trajectory and, for scoring feature tracks,
+where a pixel's scene point appears in another camera.  The scene comes
+from numpy's `RandomState`, so its arrays are bit-equal to the JAX
+package's.  Scan noise comes from a `torch.Generator` (or an explicit
+standard-normal tensor), since JAX keys cannot be replayed.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lmono_tpu_torch.config import LidarConfig
+from lmono_tpu_torch.config import CameraConfig, LidarConfig
+from lmono_tpu_torch.ops.image import to_int32_xla
 from lmono_tpu_torch.utils.lie import Pose, quat_mul, quat_rotate, so3_exp_quat
 
 _BIG = 1e9
@@ -148,6 +152,63 @@ def ray_cast(scene: Scene, origins: torch.Tensor, dirs: torch.Tensor) -> torch.T
 
 
 # --------------------------------------------------------------------------
+# Procedural intensity texture (viewpoint-consistent; smooth for LK)
+# --------------------------------------------------------------------------
+
+def _hash3(ix: torch.Tensor, iy: torch.Tensor, iz: torch.Tensor) -> torch.Tensor:
+    """Integer lattice hash → [0,1) float, deterministic.
+
+    The reference multiplies int32 lattice coordinates with wraparound and
+    keeps the low 31 bits.  The products here are int64 (exact for any
+    int32 input), and their low 31 bits are the same.
+    """
+    ix, iy, iz = ix.long(), iy.long(), iz.long()
+    h = (ix * 374761393 + iy * 668265263 + iz * 2147483647) & 0x7FFFFFFF
+    h = ((h ^ (h >> 13)) * 1274126177) & 0x7FFFFFFF
+    return ((h ^ (h >> 16)) & 0xFFFF).to(torch.float32) / 65535.0
+
+
+def value_noise3(p: torch.Tensor) -> torch.Tensor:
+    """Trilinear value noise of 3D points (...,3) → (...), C1-smooth."""
+    pf = torch.floor(p)
+    ip = to_int32_xla(pf)
+    f = p - pf
+    f = f * f * (3.0 - 2.0 * f)  # smoothstep
+
+    def corner(dx, dy, dz):
+        return _hash3(ip[..., 0] + dx, ip[..., 1] + dy, ip[..., 2] + dz)
+
+    c000, c100 = corner(0, 0, 0), corner(1, 0, 0)
+    c010, c110 = corner(0, 1, 0), corner(1, 1, 0)
+    c001, c101 = corner(0, 0, 1), corner(1, 0, 1)
+    c011, c111 = corner(0, 1, 1), corner(1, 1, 1)
+    fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
+    x00 = c000 + fx * (c100 - c000)
+    x10 = c010 + fx * (c110 - c010)
+    x01 = c001 + fx * (c101 - c001)
+    x11 = c011 + fx * (c111 - c011)
+    y0 = x00 + fy * (x10 - x00)
+    y1 = x01 + fy * (x11 - x01)
+    return y0 + fz * (y1 - y0)
+
+
+def world_intensity(p: torch.Tensor) -> torch.Tensor:
+    """Multi-octave procedural albedo at world points (...,3) → [0,1]."""
+    v = (0.55 * value_noise3(p * 0.9)
+         + 0.3 * value_noise3(p * 3.7 + 11.3)
+         + 0.15 * value_noise3(p * 13.1 + 71.7))
+    return torch.clamp(v, 0.0, 1.0)
+
+
+def world_color(p: torch.Tensor) -> torch.Tensor:
+    """Procedural RGB at world points (...,3) → (...,3) in [0,1]."""
+    r = world_intensity(p)
+    g = world_intensity(p + 101.0)
+    b = world_intensity(p + 202.0)
+    return torch.stack([r, g, b], dim=-1)
+
+
+# --------------------------------------------------------------------------
 # Sensor
 # --------------------------------------------------------------------------
 
@@ -198,6 +259,69 @@ def simulate_lidar(scene: Scene, pose: Pose, cfg: LidarConfig,
     ranges = torch.where(valid, t, torch.zeros_like(t))
     points = dirs_s * ranges[..., None]
     return {"ranges": ranges, "points": points, "valid": valid}
+
+
+def camera_ray_dirs(cam: CameraConfig, device=None) -> torch.Tensor:
+    """Camera-frame unit rays per pixel, (H, W, 3). z forward, x right, y
+    down; pixel (u, v) is sampled at its centre (u + 0.5, v + 0.5)."""
+    u = torch.arange(cam.width, dtype=torch.float32, device=device) + 0.5
+    v = torch.arange(cam.height, dtype=torch.float32, device=device) + 0.5
+    x = ((u[None, :] - cam.cx) / cam.fx).expand(cam.height, cam.width)
+    y = ((v[:, None] - cam.cy) / cam.fy).expand(cam.height, cam.width)
+    d = torch.stack([x, y, torch.ones_like(x)], dim=-1)
+    return d / torch.linalg.norm(d, dim=-1, keepdim=True)
+
+
+def render_camera(scene: Scene, pose_wc: Pose, cam: CameraConfig,
+                  rgb: bool = False) -> torch.Tensor:
+    """Render a grayscale (H,W) [or RGB (H,W,3)] image from camera pose.
+
+    pose_wc: world-from-camera.  Sky (no hit) renders as a horizon
+    gradient.
+    """
+    dirs_c = camera_ray_dirs(cam, pose_wc.t.device)
+    dirs_w = quat_rotate(pose_wc.q[None, None, :], dirs_c)
+    origin = pose_wc.t.expand(dirs_w.shape)
+    t = ray_cast(scene, origin, dirs_w)
+    hit = t < (_BIG * 0.5)
+    pts = origin + dirs_w * torch.where(hit, t, torch.ones_like(t))[..., None]
+    # simple distance attenuation so far geometry is dimmer (adds gradient)
+    atten = 1.0 / (1.0 + 0.004 * torch.where(hit, t, torch.zeros_like(t)))
+    if rgb:
+        albedo = world_color(pts)
+        sky = torch.stack([0.7 + 0.2 * dirs_w[..., 2]] * 3, -1)
+        img = torch.where(hit[..., None], albedo * atten[..., None], sky)
+    else:
+        albedo = world_intensity(pts)
+        sky = 0.7 + 0.2 * dirs_w[..., 2]
+        img = torch.where(hit, albedo * atten, sky)
+    return torch.clamp(img, 0.0, 1.0)
+
+
+def reproject_pixels(scene: Scene, pose_wc0: Pose, pose_wc1: Pose,
+                     cam: CameraConfig, uv0: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where the scene points seen at pixels uv0 (N,2) of camera 0 appear
+    in camera 1: the ground truth of a feature track.
+
+    A pixel's ray passes through its centre (u + 0.5, v + 0.5), as
+    `render_camera` samples.  Returns (uv1 (N,2), ok (N,)): ok is false
+    where the ray misses the scene or the point is behind camera 1
+    (occlusion in camera 1 is not checked).
+    """
+    x = (uv0[:, 0] + 0.5 - cam.cx) / cam.fx
+    y = (uv0[:, 1] + 0.5 - cam.cy) / cam.fy
+    d = torch.stack([x, y, torch.ones_like(x)], dim=-1)
+    d = quat_rotate(pose_wc0.q, d / torch.linalg.norm(d, dim=-1, keepdim=True))
+    origin = pose_wc0.t.expand(d.shape)
+    t = ray_cast(scene, origin, d)
+    hit = t < (_BIG * 0.5)
+    p1 = pose_wc1.apply_inv(origin + d * torch.where(hit, t, 0.0)[:, None])
+    z = p1[:, 2]
+    safe_z = torch.where(z > 1e-6, z, 1.0)
+    uv1 = torch.stack([cam.fx * p1[:, 0] / safe_z + cam.cx - 0.5,
+                       cam.fy * p1[:, 1] / safe_z + cam.cy - 0.5], dim=-1)
+    return uv1, hit & (z > 1e-6)
 
 
 # --------------------------------------------------------------------------

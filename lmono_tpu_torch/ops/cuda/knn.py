@@ -1,10 +1,9 @@
 """Wrapper of the hand-written CUDA exact-KNN kernel (`csrc/knn.cu`).
 
 Replaces the TPU kernel `lmono_tpu/ops/pallas/knn.py:knn_pallas`.  The
-source is compiled with `nvcc` for sm_90a into a shared library with a plain
-C entry point at first use, into `lmono_tpu_torch/build/` (named by a hash
-of the source, so an edited source is rebuilt), and loaded with `ctypes`.
-Nothing is compiled or loaded when this module is imported.
+source is built at first use by `ops/cuda/_build.py` (nvcc, sm_90a, a plain
+C entry point loaded with `ctypes`).  Nothing is compiled or loaded when
+this module is imported.
 
 `knn_kernel_launches` counts the calls that launched the kernel; the plain
 PyTorch version is `lmono_tpu_torch.ops.knn.knn_plain`.
@@ -13,17 +12,11 @@ PyTorch version is `lmono_tpu_torch.ops.knn.knn_plain`.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[2]
-_SRC = _PKG / "csrc" / "knn.cu"
-_BUILD = _PKG / "build"
+from lmono_tpu_torch.ops.cuda._build import build_library
+
 _BLOCK = 128          # queries per block: kBlock in csrc/knn.cu
 _MIN_SPAN = 256       # fewest bank rows worth a split of their own
 _BLOCKS_PER_SM = 4    # query-block x split blocks to aim for on each SM
@@ -32,13 +25,6 @@ MAX_K = 8
 knn_kernel_launches = 0
 _lib = None
 _build_report = ""
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA KNN kernel cannot be built")
-    return path
 
 
 def build() -> str:
@@ -50,21 +36,7 @@ def build() -> str:
     global _lib, _build_report
     if _lib is not None:
         return _build_report
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    so = _BUILD / f"libknn_{tag}.so"
-    if not so.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = _BUILD / f"libknn_{tag}.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, so)
-        _build_report = res.stdout + res.stderr
-    lib = ctypes.CDLL(str(so))
+    lib, _build_report = build_library("knn.cu")
     lib.lmono_knn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                               + [ctypes.c_void_p])
     lib.lmono_knn.restype = ctypes.c_int

@@ -1,0 +1,191 @@
+"""Pyramidal Lucas–Kanade feature tracking over all feature slots at once.
+
+Port of `lmono_tpu/ops/lk.py`: a translational KLT — per level, the 2×2
+normal matrix comes from template gradients, and iterations update the
+match position with bilinear sampling — with the forward-backward check of
+the reference front-end (`FeatureTracker.cc:218-235`).
+
+The port is held to the JAX package's TPU route.  There, `track_pyramid`
+runs the Pallas kernel (`ops/pallas/lk.py:_lk_kernel`) on every level at
+least 128 px wide and the vmapped `lk_level` on narrower ones, and the two
+differ at borders, in the inverse and in the ok gate (see
+`csrc/lk.cu`).  `lk_level` here computes either (`pallas=True/False`): on
+CUDA tensors through the hand-written kernel (`ops/cuda/lk.py`), which
+raises rather than fall back; on CPU tensors through `lk_level_plain`.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from lmono_tpu_torch.ops.image import bilinear_sample, to_int32_xla
+
+PALLAS_MIN_WIDTH = 128      # narrower levels take the vmapped semantics
+_PALLAS_STEP_THRESH = 0.1   # the TPU kernel's convergence gate (px)
+
+# calls of `lk_level_plain`; read with the kernel's launch count to show
+# which path a run took
+lk_plain_calls = 0
+
+
+def _slab_patches(img: torch.Tensor, xf: torch.Tensor, yf: torch.Tensor,
+                  patch: int) -> torch.Tensor:
+    """`_lk_kernel`'s bilinear P×P patches at (xf, yf) (N,): read from a
+    (P+1)² slab whose base is clamped into the image, so the weights
+    extrapolate at borders.  Returns (N, P, P)."""
+    H, W = img.shape
+    P, S = patch, patch + 1
+    r = (P - 1) * 0.5
+    xr, yr = xf - r, yf - r
+    bxi = torch.clamp(to_int32_xla(torch.floor(xr)), 0, W - S)
+    byi = torch.clamp(to_int32_xla(torch.floor(yr)), 0, H - S)
+    fx, fy = (xr - bxi)[:, None, None], (yr - byi)[:, None, None]
+    ar = torch.arange(S, device=img.device)
+    rows = byi.long()[:, None] + ar
+    cols = bxi.long()[:, None] + ar
+    slab = img[rows[:, :, None], cols[:, None, :]]            # (N, S, S)
+    tl, tr = slab[:, :P, :P], slab[:, :P, 1:]
+    bl, br = slab[:, 1:, :P], slab[:, 1:, 1:]
+    top = tl + fx * (tr - tl)
+    bot = bl + fx * (br - bl)
+    return top + fy * (bot - top)
+
+
+def _lk_pallas_plain(img0, ix0, iy0, img1, pts0, guess, patch, iters):
+    """`_lk_kernel` for all slots (see `_slab_patches`)."""
+    H, W = img0.shape
+    if H < patch + 1 or W < patch + 1:
+        raise ValueError(f"image {H}x{W} too small for patch {patch}")
+    x0, y0 = pts0[:, 0], pts0[:, 1]
+    t = _slab_patches(img0, x0, y0, patch)
+    gx = _slab_patches(ix0, x0, y0, patch)
+    gy = _slab_patches(iy0, x0, y0, patch)
+    gxx = (gx * gx).sum((1, 2))
+    gxy = (gx * gy).sum((1, 2))
+    gyy = (gy * gy).sum((1, 2))
+    det = gxx * gyy - gxy * gxy
+    ok_g = det > 1e-6
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1e-12, det)
+    i00 = gyy * inv_det
+    i01 = -gxy * inv_det
+    i11 = gxx * inv_det
+
+    xf, yf = guess[:, 0], guess[:, 1]
+    step = torch.zeros_like(xf)
+    for _ in range(iters):
+        it = _slab_patches(img1, xf, yf, patch) - t
+        bx = (it * gx).sum((1, 2))
+        by = (it * gy).sum((1, 2))
+        dx = i00 * bx + i01 * by
+        dy = i01 * bx + i11 * by
+        xf, yf = xf - dx, yf - dy
+        step = torch.sqrt(dx * dx + dy * dy)
+    ok = (ok_g & (step < _PALLAS_STEP_THRESH)
+          & (xf > 1.0) & (xf < W - 2.0) & (yf > 1.0) & (yf < H - 2.0))
+    return torch.stack([xf, yf], dim=-1), ok
+
+
+def _patch_offsets(patch: int, device) -> torch.Tensor:
+    """(patch², 2) offsets of the sampling grid around a centre, x fastest."""
+    offs = torch.arange(patch, dtype=torch.float32, device=device) - patch // 2
+    oy, ox = torch.meshgrid(offs, offs, indexing="ij")
+    return torch.stack([ox.reshape(-1), oy.reshape(-1)], dim=-1)
+
+
+def _lk_xla_plain(img0, ix0, iy0, img1, pts0, guess, patch, iters, eps):
+    """The vmapped `lk_level`: each sample coordinate is clipped on its own;
+    ok = det > 1e-6 and the last step under 10·eps."""
+    o = _patch_offsets(patch, img0.device)
+    c0 = pts0[:, None, :] + o
+    t = bilinear_sample(img0, c0)
+    gx = bilinear_sample(ix0, c0)
+    gy = bilinear_sample(iy0, c0)
+    gxx = (gx * gx).sum(1)
+    gxy = (gx * gy).sum(1)
+    gyy = (gy * gy).sum(1)
+    det = gxx * gyy - gxy * gxy
+    ok_g = det > 1e-6
+    den = torch.clamp(det, min=1e-12)
+    inv00 = torch.where(ok_g, gyy / den, 0.0)
+    inv01 = torch.where(ok_g, -gxy / den, 0.0)
+    inv11 = torch.where(ok_g, gxx / den, 0.0)
+
+    pt = guess
+    step = torch.zeros_like(pt[:, 0])
+    for _ in range(iters):
+        it = bilinear_sample(img1, pt[:, None, :] + o) - t
+        bx = (it * gx).sum(1)
+        by = (it * gy).sum(1)
+        d = torch.stack([inv00 * bx + inv01 * by, inv01 * bx + inv11 * by], -1)
+        pt = pt - d
+        step = torch.linalg.norm(d, dim=-1)
+    return pt, (step < eps * 10.0) & ok_g
+
+
+def lk_level_plain(img0, ix0, iy0, img1, pts0, guess, patch: int, iters: int,
+                   pallas: bool = True, eps: float = 0.01
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of one LK level for all slots: images (H,W),
+    pts0/guess (N,2) in this level's pixels → (pt1 (N,2), ok (N,) bool).
+    `pallas` picks the TPU kernel's semantics, else the vmapped
+    reference's (gate 10·eps)."""
+    global lk_plain_calls
+    lk_plain_calls += 1
+    if pallas:
+        return _lk_pallas_plain(img0, ix0, iy0, img1, pts0, guess, patch, iters)
+    return _lk_xla_plain(img0, ix0, iy0, img1, pts0, guess, patch, iters, eps)
+
+
+def lk_level(img0, ix0, iy0, img1, pts0, guess, patch: int, iters: int,
+             pallas: bool = True, eps: float = 0.01
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One LK level for all slots; CUDA tensors run the kernel."""
+    if img0.is_cuda:
+        from lmono_tpu_torch.ops.cuda.lk import lk_level_cuda
+        thresh = _PALLAS_STEP_THRESH if pallas else eps * 10.0
+        return lk_level_cuda(img0.contiguous(), ix0.contiguous(),
+                             iy0.contiguous(), img1.contiguous(),
+                             pts0.contiguous(), guess.contiguous(),
+                             patch, iters, pallas, thresh)
+    return lk_level_plain(img0, ix0, iy0, img1, pts0, guess, patch, iters,
+                          pallas, eps)
+
+
+def track_pyramid(pyr0: Sequence, grads0: Sequence, pyr1: Sequence,
+                  pts0: torch.Tensor, mask: torch.Tensor, patch: int,
+                  iters: int, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Track pts0 (N,2) from pyramid pyr0 to pyr1, coarse→fine.
+
+    pyr*/grads0 are lists (len L) of (H,W) tensors (grads0[l] = (ix, iy)).
+    Levels at least `PALLAS_MIN_WIDTH` wide take the TPU kernel's
+    semantics, narrower ones the vmapped reference's, as the JAX package's
+    TPU route does.  Returns (pts1 (N,2), ok (N,)).
+    """
+    L = len(pyr0)
+    guess = pts0 / 2.0 ** (L - 1)
+    ok = mask
+    for lvl in range(L - 1, -1, -1):
+        img0, img1 = pyr0[lvl], pyr1[lvl]
+        ix0, iy0 = grads0[lvl]
+        guess, conv = lk_level(img0, ix0, iy0, img1, pts0 / 2.0 ** lvl, guess,
+                               patch, iters,
+                               pallas=img0.shape[1] >= PALLAS_MIN_WIDTH,
+                               eps=eps)
+        ok = ok & conv
+        if lvl > 0:
+            guess = guess * 2.0
+    H, W = pyr0[0].shape
+    inb = ((guess[:, 0] > 1) & (guess[:, 0] < W - 2)
+           & (guess[:, 1] > 1) & (guess[:, 1] < H - 2))
+    return guess, ok & inb
+
+
+def track_fb(pyr0, grads0, pyr1, grads1, pts0, mask, patch: int = 21,
+             iters: int = 10, eps: float = 0.01, fb_thresh: float = 0.5):
+    """Forward-backward tracking (reference `FeatureTracker.cc:218-235`)."""
+    pts1, ok1 = track_pyramid(pyr0, grads0, pyr1, pts0, mask, patch, iters, eps)
+    back, ok2 = track_pyramid(pyr1, grads1, pyr0, pts1, ok1, patch, iters, eps)
+    fb_err = torch.linalg.norm(back - pts0, dim=-1)
+    return pts1, ok1 & ok2 & (fb_err < fb_thresh)

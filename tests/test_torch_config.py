@@ -55,6 +55,11 @@ def test_port_imports_no_jax():
         "lmono_tpu_torch.lidar.features", "lmono_tpu_torch.lidar.registration",
         "lmono_tpu_torch.lidar.odometry", "lmono_tpu_torch.ops.knn",
         "lmono_tpu_torch.ops.voxelmap", "lmono_tpu_torch.ops.cuda.knn",
+        "lmono_tpu_torch.ops.image", "lmono_tpu_torch.ops.corners",
+        "lmono_tpu_torch.ops.ransac", "lmono_tpu_torch.ops.lk",
+        "lmono_tpu_torch.ops.cuda.lk", "lmono_tpu_torch.ops.cuda._build",
+        "lmono_tpu_torch.camera", "lmono_tpu_torch.estimator",
+        "lmono_tpu_torch.estimator.tracker",
     ]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
