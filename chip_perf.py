@@ -1,0 +1,246 @@
+#!/usr/bin/env python3
+"""Kernel times and profiler windows of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_perf.py [--root DIR]
+
+Times the port's two hand-written kernels through the entry points that its
+slices call, and takes `torch.profiler` windows of the KITTI-scale
+odometry and tracker.  `--root` imports `lmono_tpu_torch` from another
+checkout instead of this one, for example an earlier commit unpacked with
+`git archive` into a git-ignored directory; to compare two versions, run
+both on the same card one after the other, in turns (old, new, new, old).
+
+1. knn: `ops.knn.knn(q, t, mask, 5, center=c)` at the odometry's four
+   shapes, points at world scale, recentred on a sensor position;
+2. lk: `ops.lk.track_fb` at the tracker's two pyramids, 150 / 96 random
+   slots on two consecutive rendered frames of the simulator;
+   for each: ms per call batched (20 back-to-back calls between two CUDA
+   events, median of 5), and from a profiler window of 20 calls the device
+   ms per call of every kernel the call launches, of the hand-written
+   kernels alone, and the kernels per call;
+3. profile: the kitti odometry (20 frames after 40) and tracker-kitti (10
+   frames after 50): device ms per frame, busy share of the wall time, the
+   hand-written kernels' ms and share, kernels per frame; wall ms per frame
+   from a window of the same length with the profiler off.
+
+Prints one line per measurement and the card's name and power limit.
+Needs a CUDA device; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+KNN_SHAPES = [(1536, 32768), (4096, 65536), (512, 8192), (1024, 16384)]
+KNN_K = 5
+# (config, slots) of the tracker's two pyramids
+LK_CASES = [("kitti", 150), ("synthetic", 96)]
+CALLS, REPS = 20, 5
+OWN_KERNEL = re.compile(r"\b(knn|lk)_\w*kernel\b")   # the csrc/ kernels
+
+
+def say(phase: str, **kv) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
+
+
+def _batched_ms(fn) -> float:
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(CALLS):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / CALLS)
+    return statistics.median(times)
+
+
+def _device_events(prof) -> list:
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _device_per_call(fn) -> dict:
+    """Device ms per call of all kernels and of the hand-written ones, and
+    kernels per call, from a profiler window of CALLS calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(CALLS):
+            fn()
+        torch.cuda.synchronize()
+    ev = _device_events(prof)
+    own = [e for e in ev if OWN_KERNEL.search(e.name)]
+    us = lambda es: sum(e.time_range.elapsed_us() for e in es)  # noqa: E731
+    return {"device_ms": f"{us(ev) / 1e3 / CALLS:.4f}",
+            "kernel_ms": f"{us(own) / 1e3 / CALLS:.4f}",
+            "kernels_per_call": f"{len(ev) / CALLS:.1f}"}
+
+
+def knn_times(dev) -> None:
+    from lmono_tpu_torch.ops.knn import knn
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    for Q, M in KNN_SHAPES:
+        c = torch.tensor([310.0, -45.0, 2.0], device=dev)
+        q = c + 20.0 * torch.randn(Q, 3, generator=g, device=dev)
+        t = c + 20.0 * torch.randn(M, 3, generator=g, device=dev)
+        mask = torch.rand(M, generator=g, device=dev) < 0.9
+
+        def call():
+            return knn(q, t, mask, KNN_K, center=c)
+
+        say("knn", Q=Q, M=M, batched_ms=f"{_batched_ms(call):.4f}",
+            **_device_per_call(call))
+
+
+def _frames(cfg, dev, first: int, n: int) -> list:
+    """Rendered grey frames first … first+n-1 of the simulator's circuit."""
+    from lmono_tpu_torch.io import synthetic as syn
+    from lmono_tpu_torch.utils.lie import Pose
+
+    scene = syn.make_city_scene(device=dev)
+    traj = syn.circuit_trajectory(120, device=dev)
+    T_LC = syn.synthetic_T_CL(device=dev).inverse()
+    return [syn.render_camera(scene, Pose(traj.t[i], traj.q[i]).compose(T_LC),
+                              cfg.camera) for i in range(first, first + n)]
+
+
+def lk_times(dev) -> None:
+    from lmono_tpu_torch.config import kitti_scale_config, synthetic_config
+    from lmono_tpu_torch.ops.image import build_pyramid, scharr_gradients
+    from lmono_tpu_torch.ops.lk import track_fb
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    for name, N in LK_CASES:
+        cfg = kitti_scale_config() if name == "kitti" else synthetic_config()
+        L, tc = cfg.tracker.pyramid_levels, cfg.tracker
+        img0, img1 = _frames(cfg, dev, 20, 2)
+        H, W = img0.shape
+        pyr0, pyr1 = build_pyramid(img0, L), build_pyramid(img1, L)
+        grads0 = [scharr_gradients(p) for p in pyr0]
+        grads1 = [scharr_gradients(p) for p in pyr1]
+        pts = torch.rand(N, 2, generator=g, device=dev) * torch.tensor(
+            [W - 1.0, H - 1.0], device=dev)
+        mask = torch.rand(N, generator=g, device=dev) < 0.9
+
+        def call():
+            return track_fb(pyr0, grads0, pyr1, grads1, pts, mask,
+                            patch=tc.lk_patch, iters=tc.lk_iters, eps=tc.lk_eps,
+                            fb_thresh=tc.fb_threshold)
+
+        say("lk", pyramid=name, H=H, W=W, levels=L, N=N,
+            batched_ms=f"{_batched_ms(call):.4f}", **_device_per_call(call))
+
+
+def _window(prof, frames: int, wall_ms: float, pattern: str) -> dict:
+    ev = _device_events(prof)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in ev)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:                       # union of the device intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    total = sum(b - a for a, b in spans)
+    own = [e for e in ev if OWN_KERNEL.search(e.name) and pattern in e.name]
+    t = sum(e.time_range.elapsed_us() for e in own)
+    return {"device_ms_per_frame": f"{total / 1e3 / frames:.4f}",
+            "busy_share": f"{busy / 1e3 / frames / wall_ms:.4f}",
+            "kernels_per_frame": f"{len(ev) / frames:.1f}",
+            f"{pattern}_ms_per_frame": f"{t / 1e3 / frames:.4f}",
+            f"{pattern}_share_of_device": f"{t / total:.4f}" if total else "0",
+            f"{pattern}_launches_per_frame": f"{len(own) / frames:.2f}"}
+
+
+def profile_windows(dev) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from lmono_tpu_torch.camera import camera_from_config
+    from lmono_tpu_torch.config import kitti_scale_config
+    from lmono_tpu_torch.estimator.tracker import FeatureTracker
+    from lmono_tpu_torch.io import synthetic as syn
+    from lmono_tpu_torch.lidar.odometry import LidarOdometry
+    from lmono_tpu_torch.utils.lie import Pose
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    cfg = kitti_scale_config()
+
+    # kitti odometry: 2 chunks of 20 frames as warm-up, 1 timed, 1 profiled
+    scene = syn.make_city_scene(device=dev)
+    traj = syn.circuit_trajectory(120, device=dev)
+    g = torch.Generator(device=dev).manual_seed(200)
+    frames = [syn.simulate_lidar(scene, Pose(traj.t[i], traj.q[i]), cfg.lidar,
+                                 0.01, generator=g) for i in range(80)]
+    chunks = [{k: torch.stack([f[k] for f in frames[c:c + 20]])
+               for k in ("points", "ranges", "valid")} for c in range(0, 80, 20)]
+    odo = LidarOdometry(cfg.lidar, device=dev)
+    for c in chunks[:2]:
+        odo.process_chunk(c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    odo.process_chunk(chunks[2])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 20
+    with profile(activities=acts) as prof:
+        odo.process_chunk(chunks[3])
+        torch.cuda.synchronize()
+    say("profile-kitti", frames=20, wall_ms_per_frame=f"{wall:.3f}",
+        **_window(prof, 20, wall, "knn"))
+
+    # tracker-kitti: 50 frames of warm-up, 20 timed, 10 profiled
+    images = _frames(cfg, dev, 0, 80)
+    tracker = FeatureTracker(camera_from_config(cfg.camera), cfg.tracker,
+                             cfg.camera.height, cfg.camera.width, device=dev)
+    for f in images[:50]:
+        tracker.process(f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in images[50:70]:
+        tracker.process(f)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 20
+    with profile(activities=acts) as prof:
+        for f in images[70:80]:
+            tracker.process(f)
+        torch.cuda.synchronize()
+    say("profile-tracker-kitti", frames=10, wall_ms_per_frame=f"{wall:.3f}",
+        **_window(prof, 10, wall, "lk"))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
+                    help="checkout whose lmono_tpu_torch is measured")
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_perf: torch.cuda.is_available() is false")
+    sys.path.insert(0, os.path.abspath(a.root))
+    import lmono_tpu_torch
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip(),
+        flush=True)
+    say("root", package=os.path.dirname(lmono_tpu_torch.__file__))
+    dev = torch.device("cuda", 0)
+    knn_times(dev)
+    lk_times(dev)
+    profile_windows(dev)
+
+
+if __name__ == "__main__":
+    main()

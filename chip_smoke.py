@@ -10,11 +10,20 @@ kernel on their paths against its plain PyTorch version:
 1. device: the card, its power limit and the toolchain;
 2. build: compiles the CUDA kernels (`lmono_tpu_torch/csrc/knn.cu`, K1, and
    `lmono_tpu_torch/csrc/lk.cu`, K2), one `nvcc` each, started together;
-3. knn: K1 against `knn_plain` at the odometry's shapes and a ragged case,
-   with times of both;
-4. lk: K2 against `lk_level_plain` at the four KITTI pyramid levels (N=150)
-   and at 512×1024 (N=256), both LK semantics, on a smooth random texture
-   shifted by a known sub-pixel flow, with times of both;
+3. knn: K1 (one launch per call: a thread-block cluster splits the bank)
+   against `knn_plain` at the odometry's shapes and a ragged case; an
+   exact-tie case with bank points duplicated across the kernel's warp
+   slices and cluster ranks, whose index lists must equal the plain
+   version's; a `center=` case through `ops/knn.py:knn`; with times of the
+   kernel, the plain version and the nearest PyTorch calls (`cdist`, a
+   mask, `topk`), and the bound and roofline share of each shape;
+4. lk: K2's one-level case against `lk_level_plain` at the four KITTI
+   pyramid levels (N=150) and at 512×1024 (N=256), both LK semantics, on a
+   smooth random texture shifted by a known sub-pixel flow; then the fused
+   forward-backward `track_fb` (every level and both directions in one
+   launch) against `track_fb_plain` at the KITTI pyramid (4 levels, 150
+   slots) and the synthetic one (3 levels, 96 slots); with times, bounds
+   and roofline shares;
 5. synthetic / kitti: the odometry slice at `synthetic_config().lidar` and
    `kitti_scale_config().lidar`, 120 simulated frames in chunks of 20 (as
    `bench.py` runs the JAX package): ATE gate 0.5 m, fps, drift and peak
@@ -23,14 +32,15 @@ kernel on their paths against its plain PyTorch version:
 6. tracker-synthetic / tracker-kitti: the KLT front-end at
    `synthetic_config()` (512×256, 96 slots, 3 levels) and
    `kitti_scale_config()` (1241×376, 150 slots, 4 levels), 120 frames
-   rendered on the card along the circuit: exactly 2 × levels K2 launches
-   per frame and no plain LK call, median frame-to-frame track error
+   rendered on the card along the circuit: exactly 1 K2 launch per frame
+   and no plain LK call, median frame-to-frame track error
    against the simulator's geometry under 0.6 px, mean tracks carried at
    least half the slots, frames/s and peak memory, and (synthetic) the
    first frames again on the CPU.
 
-Prints one JSON line of kernel results, the `nvidia-smi` name and power
-limit, and last `{"ok": true, "device": {...}}`.  Any failed check raises,
+Prints one JSON line of kernel results (time, launches and launches per
+frame on the main path, bound, plain and library times), the `nvidia-smi`
+name and power limit, and last `{"ok": true, "device": {...}}`.  Any failed check raises,
 so the exit code is non-zero and the last line is not printed.  Needs a
 CUDA device; imports nothing of JAX.
 """
@@ -57,6 +67,12 @@ NOISE_STD_M = 0.01        # range noise of the simulated sweeps
 KNN_K = 5
 KNN_RTOL, KNN_ATOL = 1e-5, 1e-4      # d² of kernel vs plain (both exact f32)
 KNN_GAP = 1e-4            # index sets compared where d²_(k+1) − d²_k exceeds this
+# (Q, M, kept share of bank rows): kitti edge and plane (the second is the
+# kernels line's shape), synthetic edge and plane, and a ragged case (Q, M
+# not multiples of the tiles) with fewer than k valid rows
+KNN_CASES = [(1536, 32768, 0.9), (4096, 65536, 0.9), (512, 8192, 0.9),
+             (1024, 16384, 0.9), (777, 3001, 3.0 / 3001)]
+KNN_TIE_SHAPE = (1536, 32768)
 CPU_CHECK_FRAMES = 4
 # CUDA vs CPU pose, as tests/test_torch_odometry.py holds the port to the
 # JAX package: f32 sums in another order move the reference's
@@ -65,6 +81,19 @@ CPU_ATOL_T, CPU_ATOL_Q = 1e-2, 1e-3
 DRIFT_LENGTHS_M = (20.0, 40.0, 60.0, 80.0)  # a 120-frame run covers 96 m
 TIMING_CALLS = 20
 TIMING_REPS = 5
+# published peaks of one H100 SXM at 700 W (dense f32 outside the tensor
+# cores, HBM3), for bounds and roofline shares
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
+KNN_FLOPS_PER_PAIR = 8       # 3 subtracts, 3 multiplies, 2 adds
+# K1's issue floor: 6 FP32 instructions per pair on every lane of the card
+# (132 SMs × 128 lanes at 1.98 GHz), masked rows included
+KNN_ISSUE_PER_PAIR, FP32_ISSUE_S = 6, 132 * 128 * 1.98e9
+# LK flops per patch pixel: a bilinear sample is 4 products and 3 adds; the
+# template samples 3 arrays and adds 3 products to the normal matrix; a
+# Gauss-Newton step samples once, subtracts and adds 2 products
+LK_TEMPLATE_FLOPS = 3 * 7 + 3 * 2
+LK_STEP_FLOPS = 7 + 1 + 2 * 2
 # K2 against its plain version: the two sum the patch in another order
 LK_ATOL_PX = 1e-3
 LK_OK_AGREE = 0.99
@@ -72,6 +101,10 @@ LK_FLOW = (1.37, -0.61)       # img1(x) = img0(x + flow): LK finds -flow
 LK_CASES = [(376, 1241, 150), (188, 620, 150), (94, 310, 150), (47, 155, 150),
             (512, 1024, 256)]  # KITTI levels at 150 slots; KERNELS.json's lk
 LK_PATCH, LK_ITERS = 21, 10
+LK_EPS, FB_THRESH = 0.01, 0.5
+# the tracker's pyramids: (H, W, levels, slots) of kitti_scale_config and
+# synthetic_config
+FB_CASES = [(376, 1241, 4, 150), (256, 512, 3, 96)]
 TRACK_ERR_GATE_PX = 0.6      # twice the reference's 0.30 px median
 CARRIED_SHARE = 0.5          # mean tracks carried per frame / max_features
 TRACK_WARMUP = 10            # frames before the tracker's timed window
@@ -141,20 +174,52 @@ def _median_ms(fn) -> float:
     return statistics.median(times)
 
 
+def _knn_bound_ms(Q: int, valid: int, M: int, k: int) -> tuple[float, str]:
+    """Least time of one KNN call: the pairs with a valid bank row at the f32
+    peak, against the bytes read and written once at the HBM rate."""
+    flops = KNN_FLOPS_PER_PAIR * Q * valid
+    nbytes = 12 * Q + 13 * M + 8 * Q * k
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _knn_library(q, t, mask, k):
+    """The nearest PyTorch calls (timed as a yardstick, never used by the
+    port): exact distances, the mask, the k smallest."""
+    d = torch.cdist(q, t, compute_mode="donot_use_mm_for_euclid_dist")
+    d = d.masked_fill(~mask, float("inf"))
+    return torch.topk(d, k, dim=1, largest=False)
+
+
+def _knn_check(name, d_k, i_k, d_p, i_p, exact_idx=False) -> float:
+    """Kernel (Q,k) against plain (Q,k+1) results; returns max |d² error|."""
+    d_k, i_k, d_p, i_p = (x.cpu() for x in (d_k, i_k, d_p, i_p))
+    torch.testing.assert_close(d_k, d_p[:, :KNN_K], rtol=KNN_RTOL, atol=KNN_ATOL)
+    found = d_k < 1e11
+    if not torch.equal(found, d_p[:, :KNN_K] < 1e11):
+        raise AssertionError(f"knn {name}: missing entries differ")
+    if exact_idx and not torch.equal(i_k, i_p[:, :KNN_K]):
+        bad = int((i_k != i_p[:, :KNN_K]).any(dim=1).sum())
+        raise AssertionError(f"knn {name}: index lists differ on {bad} rows")
+    gap = (d_p[:, KNN_K] - d_p[:, KNN_K - 1]) > KNN_GAP
+    sk = torch.sort(torch.where(found, i_k, -1), dim=1).values[gap]
+    sp = torch.sort(torch.where(found, i_p[:, :KNN_K], -1), dim=1).values[gap]
+    if not torch.equal(sk, sp):
+        bad = int((sk != sp).any(dim=1).sum())
+        raise AssertionError(f"knn {name}: index sets differ on {bad} rows")
+    return float((d_k - d_p[:, :KNN_K]).abs()[found].max()) if found.any() else 0.0
+
+
 def knn_phase(dev) -> dict:
     """Kernel vs plain version on the card, at world-scale coordinates."""
-    from lmono_tpu_torch.ops.cuda.knn import knn_cuda
-    from lmono_tpu_torch.ops.knn import knn_plain
+    from lmono_tpu_torch.ops.cuda.knn import _sms, knn_cuda, knn_plan
+    from lmono_tpu_torch.ops.knn import knn, knn_plain
 
     g = torch.Generator(device=dev).manual_seed(1)
     center = torch.tensor([100.0, 0.0, 0.0], device=dev)
-    # (Q, M, kept share of bank rows); the last is ragged (Q, M not
-    # multiples of the block or tile) with fewer than k valid rows
-    cases = [(1536, 32768, 0.9), (4096, 65536, 0.9), (512, 8192, 0.9),
-             (777, 3001, 3.0 / 3001)]
     max_err = 0.0
-    ms = plain_ms = None
-    for Q, M, keep in cases:
+    shapes = {}
+    for Q, M, keep in KNN_CASES:
         q = center + 20.0 * torch.randn(Q, 3, generator=g, device=dev)
         t = center + 20.0 * torch.randn(M, 3, generator=g, device=dev)
         if keep < 0.5:
@@ -165,27 +230,63 @@ def knn_phase(dev) -> dict:
         d_k, i_k = knn_cuda(q, t, mask, KNN_K)
         d_p, i_p = knn_plain(q, t, mask, KNN_K + 1)
         torch.cuda.synchronize()
-        d_k, i_k, d_p, i_p = (x.cpu() for x in (d_k, i_k, d_p, i_p))
-        torch.testing.assert_close(d_k, d_p[:, :KNN_K], rtol=KNN_RTOL, atol=KNN_ATOL)
-        found = d_k < 1e11
-        if not torch.equal(found, d_p[:, :KNN_K] < 1e11):
-            raise AssertionError(f"knn ({Q},{M}): missing entries differ")
-        gap = (d_p[:, KNN_K] - d_p[:, KNN_K - 1]) > KNN_GAP
-        sk = torch.sort(torch.where(found, i_k, -1), dim=1).values[gap]
-        sp = torch.sort(torch.where(found, i_p[:, :KNN_K], -1), dim=1).values[gap]
-        if not torch.equal(sk, sp):
-            bad = int((sk != sp).any(dim=1).sum())
-            raise AssertionError(f"knn ({Q},{M}): index sets differ on {bad} rows")
-        err = float((d_k - d_p[:, :KNN_K]).abs()[found].max()) if found.any() else 0.0
+        err = _knn_check(f"({Q},{M})", d_k, i_k, d_p, i_p)
         max_err = max(max_err, err)
+        if keep < 0.5:
+            say("knn", Q=Q, M=M, valid=int(mask.sum()), max_abs_err=err)
+            continue
+        valid = int(mask.sum())
+        bound, by = _knn_bound_ms(Q, valid, M, KNN_K)
         k_ms = _median_ms(lambda: knn_cuda(q, t, mask, KNN_K))
         p_ms = _median_ms(lambda: knn_plain(q, t, mask, KNN_K))
-        say("knn", Q=Q, M=M, valid=int(mask.sum()), max_abs_err=err,
-            rows_with_gap=int(gap.sum()), kernel_ms=f"{k_ms:.4f}",
-            plain_ms=f"{p_ms:.4f}")
-        if (Q, M) == (4096, 65536):
-            ms, plain_ms = k_ms, p_ms
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+        l_ms = _median_ms(lambda: _knn_library(q, t, mask, KNN_K))
+        plan = knn_plan(Q, M, _sms(dev))
+        say("knn", Q=Q, M=M, valid=valid, max_abs_err=err,
+            plan=f"R{plan.R}/C{plan.cluster}/W{plan.warps}/grid{plan.grid}",
+            kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+            library_ms=f"{l_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+            roofline_share=f"{bound / k_ms:.4f}",
+            issue_floor_ms=f"{1e3 * KNN_ISSUE_PER_PAIR * Q * M / FP32_ISSUE_S:.4f}")
+        shapes[(Q, M)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                          "bound_ms": bound, "bound_by": by}
+
+    # exact ties: copies of one point on both sides of every warp-slice and
+    # cluster-rank boundary of the kernel's plan, queries sitting on them
+    Q, M = KNN_TIE_SHAPE
+    plan = knn_plan(Q, M, _sms(dev))
+    t = center + 20.0 * torch.randn(M, 3, generator=g, device=dev)
+    bounds = sorted({lo for _, _, lo, _ in plan.slices(M) if 0 < lo < M})
+    for n, b in enumerate(bounds):
+        t[b - 2:b + 2] = t[(37 * n) % M]
+    q = t[(37 * torch.arange(Q, device=dev)) % M].clone()
+    mask = torch.ones(M, dtype=torch.bool, device=dev)
+    mask[torch.tensor(bounds[::3], device=dev)] = False
+    d_k, i_k = knn_cuda(q, t, mask, KNN_K)
+    d_p, i_p = knn_plain(q, t, mask, KNN_K + 1)
+    torch.cuda.synchronize()
+    ties = int((d_p[:, 1:KNN_K] == d_p[:, :KNN_K - 1]).sum())
+    max_err = max(max_err, _knn_check("ties", d_k, i_k, d_p, i_p, exact_idx=True))
+    say("knn-ties", Q=Q, M=M, cluster=plan.cluster, boundaries=len(bounds),
+        tied_pairs=ties, index_lists="equal")
+    if ties < len(bounds):
+        raise AssertionError(f"knn ties: only {ties} tied pairs")
+
+    # the centre subtracted in the kernel, through ops/knn.py:knn
+    q = 1000.0 + 20.0 * torch.randn(Q, 3, generator=g, device=dev)
+    t = 1000.0 + 20.0 * torch.randn(M, 3, generator=g, device=dev)
+    mask = torch.rand(M, generator=g, device=dev) < 0.9
+    c = torch.tensor([1000.0, 990.0, 1010.0], device=dev)
+    d_c, i_c = knn(q, t, mask, KNN_K, center=c)
+    d_0, i_0 = knn_cuda(q - c, t - c, mask, KNN_K)
+    d_p, i_p = knn_plain(q - c, t - c, mask, KNN_K + 1)
+    torch.cuda.synchronize()
+    if not (torch.equal(d_c, d_0) and torch.equal(i_c, i_0)):
+        raise AssertionError("knn center: in-kernel recentring differs from "
+                             "torch's subtraction")
+    max_err = max(max_err, _knn_check("center", d_c, i_c, d_p, i_p))
+    say("knn-center", Q=Q, M=M, same_as_torch_recentring=True)
+    main = shapes[KNN_CASES[1][:2]]
+    return {"max_abs_err": max_err, **main, "shapes": shapes}
 
 
 def _texture(H: int, W: int, g: torch.Generator, dev) -> torch.Tensor:
@@ -201,32 +302,96 @@ def _texture(H: int, W: int, g: torch.Generator, dev) -> torch.Tensor:
     return (img - img.min()) / (img.max() - img.min())
 
 
+def _lk_scene(H: int, W: int, N: int, g: torch.Generator, dev):
+    """img0 (a texture with a flat corner), img1 = img0 moved by LK_FLOW,
+    and N slots anywhere, the four corners and the flat patch included."""
+    from lmono_tpu_torch.ops.image import bilinear_sample
+
+    img0 = _texture(H, W, g, dev)
+    flat = LK_PATCH + 4                # a flat corner: det ≈ 0 there
+    img0[:flat, -flat:] = 0.5
+    yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
+                            torch.arange(W, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    img1 = bilinear_sample(img0, torch.stack([xx + LK_FLOW[0],
+                                              yy + LK_FLOW[1]], -1))
+    pts = torch.rand(N, 2, generator=g, device=dev) * torch.tensor(
+        [W - 1.0, H - 1.0], device=dev)
+    pts[:5] = torch.tensor([[0.5, 0.5], [W - 1.5, 0.5], [0.5, H - 1.5],
+                            [W - 1.5, H - 1.5], [W - flat / 2, flat / 2]],
+                           device=dev)
+    return img0, img1, pts
+
+
+def _slab_union_px(H: int, W: int, pallas: bool, centres: torch.Tensor) -> int:
+    """Pixels of an H×W array inside the union of the (P+1)² slabs that LK
+    reads around `centres` (n,2): the base clamped into the image on a
+    TPU-semantics level, the window clipped to it on a vmapped one."""
+    S, r = LK_PATCH + 1, (LK_PATCH - 1) * 0.5
+    c = torch.nan_to_num(centres, nan=0.0, posinf=1e9, neginf=-1e9)
+    lo = torch.floor(c - r).long()
+    size = torch.tensor([W, H], device=c.device)
+    if pallas:
+        lo = torch.minimum(lo.clamp(min=0), size - S)
+        hi = lo + S
+    else:
+        hi = torch.minimum((lo + S).clamp(min=0), size)
+        lo = torch.minimum(lo.clamp(min=0), size)
+    cover = torch.zeros(H + 1, W + 1, dtype=torch.int32, device=c.device)
+    one = torch.ones(c.shape[0], dtype=torch.int32, device=c.device)
+    for ys, xs, sign in ((lo, lo, 1), (lo, hi, -1), (hi, lo, -1), (hi, hi, 1)):
+        cover.index_put_((ys[:, 1], xs[:, 0]), sign * one, accumulate=True)
+    return int((cover.cumsum(0).cumsum(1) > 0).sum())
+
+
+def _lk_bound_ms(reads: list, runs: int, io_bytes: int) -> tuple[float, str]:
+    """Least time of LK work: `reads` lists (H, W, pallas, centres) for each
+    image array read, whose slabs around the centres are read once each;
+    `runs` slot-level runs of one direction each do a template (3 bilinear
+    patches and the normal matrix) and LK_ITERS Gauss–Newton steps;
+    `io_bytes` of points and flags are read and written.  Flops at the f32
+    peak against bytes at the HBM rate."""
+    nbytes = 4 * sum(_slab_union_px(*r) for r in reads) + io_bytes
+    per_px = LK_TEMPLATE_FLOPS + LK_ITERS * LK_STEP_FLOPS
+    flops = runs * LK_PATCH ** 2 * per_px
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _fb_bound_ms(pyr0, pyr1, pts, mask, pt1, ok1, back) -> tuple[float, str]:
+    """`_lk_bound_ms` of one forward-backward track, counting what this
+    run's data needs: forward runs for the masked-in slots, backward runs
+    for those ok after the forward pass; on each level, one slab per array
+    at each slot's final position (pyr0, ix0, iy0 at pts0, pyr1 at pts1,
+    and backward ix1, iy1 at pts1 and pyr0 at the returned point)."""
+    from lmono_tpu_torch.ops.lk import level_table
+
+    f, b = pts[mask], pt1[ok1]
+    reads = []
+    for lv in level_table([tuple(p.shape) for p in pyr0], LK_PATCH):
+        s, geo = lv.scale, (lv.H, lv.W, lv.pallas)
+        reads += [(*geo, torch.cat([f, back[ok1]]) * s),     # pyr0
+                  (*geo, f * s), (*geo, f * s),              # ix0, iy0
+                  (*geo, pt1[mask] * s),                     # pyr1
+                  (*geo, b * s), (*geo, b * s)]              # ix1, iy1
+    N = pts.shape[0]
+    runs = len(pyr0) * (int(mask.sum()) + int(ok1.sum()))
+    return _lk_bound_ms(reads, runs, N * (8 + 1 + 2 * (8 + 1)))
+
+
 def lk_phase(dev) -> dict:
     """K2 vs plain version on the card, both semantics, at the tracker's
-    level shapes and KERNELS.json's."""
-    from lmono_tpu_torch.ops.cuda.lk import lk_level_cuda
-    from lmono_tpu_torch.ops.image import bilinear_sample, scharr_gradients
-    from lmono_tpu_torch.ops.lk import lk_level_plain
+    level shapes and KERNELS.json's, then the fused forward-backward track
+    at the tracker's two pyramids."""
+    from lmono_tpu_torch.ops.cuda.lk import lk_level_cuda, track_fb_cuda
+    from lmono_tpu_torch.ops.image import build_pyramid, scharr_gradients
+    from lmono_tpu_torch.ops.lk import lk_level_plain, track_fb, track_fb_plain
 
     g = torch.Generator(device=dev).manual_seed(2)
     max_err = 0.0
-    ms = plain_ms = None
     for H, W, N in LK_CASES:
-        img0 = _texture(H, W, g, dev)
-        flat = LK_PATCH + 4                # a flat corner: det ≈ 0 there
-        img0[:flat, -flat:] = 0.5
-        yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
-                                torch.arange(W, dtype=torch.float32, device=dev),
-                                indexing="ij")
-        img1 = bilinear_sample(img0, torch.stack([xx + LK_FLOW[0],
-                                                  yy + LK_FLOW[1]], -1))
+        img0, img1, pts = _lk_scene(H, W, N, g, dev)
         ix0, iy0 = scharr_gradients(img0)
-        # slots anywhere, the four corners and the flat patch included
-        pts = torch.rand(N, 2, generator=g, device=dev) * torch.tensor(
-            [W - 1.0, H - 1.0], device=dev)
-        pts[:5] = torch.tensor([[0.5, 0.5], [W - 1.5, 0.5], [0.5, H - 1.5],
-                                [W - 1.5, H - 1.5], [W - flat / 2, flat / 2]],
-                               device=dev)
         args = (img0, ix0, iy0, img1, pts, pts.clone())
         for pallas in (True, False):
             thresh = 0.1
@@ -250,9 +415,11 @@ def lk_phase(dev) -> dict:
                     *args, LK_PATCH, LK_ITERS, True, thresh))
                 p_ms = _median_ms(lambda: lk_level_plain(
                     *args, LK_PATCH, LK_ITERS, True))
-                fields.update(kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
-                if (H, W) == LK_CASES[0][:2]:
-                    ms, plain_ms = k_ms, p_ms
+                bound, by = _lk_bound_ms(
+                    [(H, W, True, pts)] * 3 + [(H, W, True, p_k)], N,
+                    N * (2 * 8 + 8 + 1))
+                fields.update(kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+                              bound_ms=f"{bound:.4f}", bound_by=by)
             say("lk", **fields)
             if agree < LK_OK_AGREE:
                 raise AssertionError(f"lk ({H},{W}) pallas={pallas}: ok agrees "
@@ -264,7 +431,47 @@ def lk_phase(dev) -> dict:
                                             abs(flow[1] + LK_FLOW[1])) > 0.05:
                 raise AssertionError(f"lk ({H},{W}) pallas={pallas}: median "
                                      f"flow {flow} on {int(m.sum())} slots")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+
+    # the fused forward-backward track: one launch for every level and both
+    # directions, against the plain chain of single levels
+    fused = {}
+    for H, W, L, N in FB_CASES:
+        img0, img1, pts = _lk_scene(H, W, N, g, dev)
+        pyr0, pyr1 = build_pyramid(img0, L), build_pyramid(img1, L)
+        grads0 = [scharr_gradients(p) for p in pyr0]
+        grads1 = [scharr_gradients(p) for p in pyr1]
+        mask = torch.rand(N, generator=g, device=dev) < 0.9
+        args = (pyr0, grads0, pyr1, grads1, pts, mask)
+        kw = dict(patch=LK_PATCH, iters=LK_ITERS, eps=LK_EPS, fb_thresh=FB_THRESH)
+        p_k, ok_k = track_fb(*args, **kw)
+        p_p, ok_p = track_fb_plain(*args, **kw)
+        fb = (pyr0, grads0, pyr1, grads1, pts, mask, LK_PATCH, LK_ITERS, LK_EPS)
+        pt1, ok1, back, _ = track_fb_cuda(*fb)
+        torch.cuda.synchronize()
+        agree = float((ok_k == ok_p).float().mean())
+        both = ok_k & ok_p
+        err = float((p_k - p_p).abs()[both].max()) if both.any() else 0.0
+        flow = (p_k - pts)[both].median(0).values.tolist()
+        max_err = max(max_err, err)
+        k_ms = _median_ms(lambda: track_fb_cuda(*fb))
+        p_ms = _median_ms(lambda: track_fb_plain(*args, **kw))
+        bound, by = _fb_bound_ms(pyr0, pyr1, pts, mask, pt1, ok1, back)
+        say("lk-fb", H=H, W=W, levels=L, N=N, ok=int(ok_k.sum()),
+            ok_agree=f"{agree:.4f}", max_abs_err_px=err,
+            median_flow=f"({flow[0]:.4f},{flow[1]:.4f})",
+            kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+            bound_ms=f"{bound:.4f}", bound_by=by,
+            roofline_share=f"{bound / k_ms:.4f}")
+        if agree < LK_OK_AGREE or not err <= LK_ATOL_PX:
+            raise AssertionError(f"lk-fb ({H},{W},{L}): ok agrees on {agree:.4f}"
+                                 f" of slots, pt1 differs by {err} px")
+        if int(both.sum()) < N // 3 or max(abs(flow[0] + LK_FLOW[0]),
+                                           abs(flow[1] + LK_FLOW[1])) > 0.05:
+            raise AssertionError(f"lk-fb ({H},{W},{L}): median flow {flow} on "
+                                 f"{int(both.sum())} slots")
+        fused[(H, W)] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                         "bound_by": by}
+    return {"max_abs_err": max_err, **fused[FB_CASES[0][:2]], "fused": fused}
 
 
 def _stage(cfg, dev, seed: int):
@@ -344,7 +551,8 @@ def slice_phase(name: str, cfg, dev, seed: int, compare_cpu: bool) -> dict:
         if not (dt_ < CPU_ATOL_T and dq_ < CPU_ATOL_Q):
             raise AssertionError(f"{name}: CUDA and CPU poses differ "
                                  f"(dt {dt_} m, dq {dq_})")
-    return {"launches": launches, "fps": fps, "ate": ate}
+    return {"launches": launches, "fps": fps, "ate": ate,
+            "per_frame": launches / N_FRAMES}
 
 
 def _track_errors(scene, poses, cam_cfg, outs) -> torch.Tensor:
@@ -412,7 +620,7 @@ def tracker_phase(name: str, cfg, dev, seed: int, compare_cpu: bool) -> dict:
         p90_err_px=f"{p90:.4f}", tracks_scored=errs.numel(),
         mean_carried=f"{mean_carried:.2f}", min_carried=int(carried.min()),
         lk_launches=launches, lk_plain_calls=plain_calls, peak_mem_bytes=peak)
-    want = 2 * tcfg.pyramid_levels * N_FRAMES
+    want = N_FRAMES                      # one fused launch per track_fb
     if launches != want:
         raise AssertionError(f"{name}: {launches} K2 launches, expected {want}")
     if plain_calls != 0:
@@ -441,7 +649,8 @@ def tracker_phase(name: str, cfg, dev, seed: int, compare_cpu: bool) -> dict:
         if worst_alive < TRACK_CPU_ALIVE_AGREE or not worst_uv < TRACK_CPU_ATOL_PX:
             raise AssertionError(f"{name}: CUDA and CPU trackers differ "
                                  f"(alive {worst_alive}, uv {worst_uv} px)")
-    return {"launches": launches, "fps": fps, "median_err": med}
+    return {"launches": launches, "fps": fps, "median_err": med,
+            "per_frame": launches / N_FRAMES}
 
 
 def main() -> None:
@@ -452,12 +661,12 @@ def main() -> None:
     build_phase()
     knn = knn_phase(dev)
     lk = lk_phase(dev)
-    slice_phase("synthetic", synthetic_config().lidar, dev, seed=100,
-                compare_cpu=True)
+    synthetic = slice_phase("synthetic", synthetic_config().lidar, dev,
+                            seed=100, compare_cpu=True)
     kitti = slice_phase("kitti", kitti_scale_config().lidar, dev, seed=200,
                         compare_cpu=False)
-    tracker_phase("tracker-synthetic", synthetic_config(), dev, seed=300,
-                  compare_cpu=True)
+    tracker_synthetic = tracker_phase("tracker-synthetic", synthetic_config(),
+                                      dev, seed=300, compare_cpu=True)
     tracker_kitti = tracker_phase("tracker-kitti", kitti_scale_config(), dev,
                                   seed=400, compare_cpu=False)
     print(json.dumps({"kernels": [{
@@ -465,14 +674,22 @@ def main() -> None:
         "source": "lmono_tpu_torch/csrc/knn.cu",
         "replaces": "lmono_tpu/ops/pallas/knn.py:90",
         "launches": kitti["launches"],
+        "launches_per_frame": {"kitti": kitti["per_frame"],
+                               "synthetic": synthetic["per_frame"]},
         "max_abs_err": knn["max_abs_err"],
-        "ms": knn["ms"], "plain_ms": knn["plain_ms"]}, {
+        "ms": knn["ms"], "plain_ms": knn["plain_ms"],
+        "bound_ms": knn["bound_ms"], "bound_by": knn["bound_by"],
+        "library_ms": knn["library_ms"]}, {
         "name": "lk", "route": "cuda",
         "source": "lmono_tpu_torch/csrc/lk.cu",
         "replaces": "lmono_tpu/ops/pallas/lk.py:109",
         "launches": tracker_kitti["launches"],
+        "launches_per_frame": {"kitti": tracker_kitti["per_frame"],
+                               "synthetic": tracker_synthetic["per_frame"]},
         "max_abs_err": lk["max_abs_err"],
-        "ms": lk["ms"], "plain_ms": lk["plain_ms"]}]}), flush=True)
+        "ms": lk["ms"], "plain_ms": lk["plain_ms"],
+        "bound_ms": lk["bound_ms"], "bound_by": lk["bound_by"],
+        "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -6,7 +6,8 @@ package imports none of it.  Paths and names mirror the JAX package's
 (`lmono_tpu/lidar/registration.py` → `lmono_tpu_torch/lidar/registration.py`).
 Each TPU kernel becomes a hand-written Hopper kernel under `csrc/`, built
 at first use; on CPU tensors the same functions run their plain PyTorch
-versions.
+versions.  Entry points run on the CUDA card unless the caller names
+another device (`default_device`).
 """
 
 import torch
@@ -18,6 +19,18 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+
+def default_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device` when one is given, else
+    the CUDA card.  Raises when there is no card, so that nothing runs on
+    the CPU unless the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
 
 from lmono_tpu_torch.config import (  # noqa: E402,F401
     LidarConfig,

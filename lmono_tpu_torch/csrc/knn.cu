@@ -3,51 +3,106 @@
 // Replaces the TPU kernel lmono_tpu/ops/pallas/knn.py:knn_pallas
 // (_knn_acc_kernel) and, on this card, also the XLA approx_min_k path of
 // lmono_tpu/ops/knn.py: the result is exact.  Python side:
-// lmono_tpu_torch/ops/cuda/knn.py (build, checks, launch count); plain
+// lmono_tpu_torch/ops/cuda/knn.py (plan, checks, launch count); plain
 // PyTorch version: lmono_tpu_torch/ops/knn.py:knn_plain.
 //
 // Semantics: for each query, the k smallest d² = |q - t|² over bank rows
 // whose mask is set, ascending, with int32 indices; ties go to the earliest
 // bank index; missing entries (fewer than k valid rows) are d² = 1e12 with
-// index 0.
+// index 0.  With a centre c, q - c and t - c are formed in f32 first, as
+// two torch subtractions would.
 //
-// What bounds it: about 8 f32 operations per query-bank pair (3 subtracts,
-// 3 multiply-adds, a compare) plus a rare sorted insert, so it is bound by
-// f32 issue rate, not memory: Q=4096 x M=65536 is about 2 GFLOP per call,
-// and each bank tile is re-read from L2 by every query block.  K = 3 gives
-// tensor cores nothing to do.
+// What bounds it: 8 f32 operations per query-bank pair (3 subtracts,
+// 3 multiplies, 2 adds; 6 instructions with the fused multiply-adds) and a
+// compare; the bank is ~1 MB, so it is bound by f32 issue rate, not memory.
+// K = 3 gives tensor cores nothing to do.
 //
-// Design:
-//   * One thread per query; a block of kBlock queries streams its slice of
-//     the bank through shared memory in tiles of kTile points, stored as
-//     float4 with the mask folded into .w (every thread reads the same
-//     shared word, a broadcast).  The TPU kernel moved masked rows to a far
-//     sentinel because an in-kernel mask select hung Mosaic; here the mask
-//     test is a free predicate.
-//   * Each thread keeps its k <= 8 best (d², index) pairs in registers with
-//     a sorted insert under strict <.  Points are scanned in ascending index
-//     order, so strict < keeps the earlier index first among equal d².
-//   * d² is the difference form dx²+dy²+dz² (on coordinates the caller has
-//     recentred): exact, and free of the q²-2q·t+t² expansion's
-//     cancellation at world magnitudes.
-//   * With one thread per query, a grid over queries alone has only
-//     ceil(Q/kBlock) blocks (12-32 at the odometry's shapes) for 132 SMs, so
-//     the bank is also split over gridDim.y: each split writes its own
-//     best-k, and a second kernel merges the splits per query.  Splits are
-//     merged in ascending index order and each split's list is sorted by
-//     (d², index), so the same strict-< insert keeps the earliest index on
-//     ties.
+// Design, one launch per call:
+//   * A thread holds R queries in registers (R = 1 or 2), each with its
+//     k best (d², index) pairs, so one shared-memory read of a bank point
+//     feeds R independent distance chains.  A CTA's 32·R queries are the
+//     same for all its warps.
+//   * The bank is cut into C·W ascending slices: the C CTAs of a thread-
+//     block cluster (C <= 8) take consecutive ranges, and the W warps of
+//     each CTA consecutive sub-ranges.  Each warp streams its own slice
+//     through shared memory in tiles of kTileRows rows, double-buffered with
+//     cp.async, so the next tile loads while the current one is scanned;
+//     only __syncwarp orders a warp's tiles.
+//   * When a tile has landed, each lane re-packs four of its rows into
+//     float4, subtracting the centre; masked rows and rows past the slice
+//     become +inf.  Their d² is inf (NaN for a non-finite query), which
+//     never passes the strict < against the 1e12 start, so the scan has no
+//     mask test.
+//   * Inserts are what costs: a lane's sorted insert runs while the rest of
+//     its warp waits, and a list restarted on every short slice inserts
+//     ~k·ln(rows/k) times.  So every lane first takes, for each of its
+//     queries, the least d² over the first kSampleRows rows of its warp's
+//     slice (a min, no insert).  These minima come from disjoint
+//     groups of rows, so the k-th smallest of them over the cluster's
+//     C·W warps is an upper bound tau on each query's final k-th d²:
+//     k distinct rows lie at or below it.  The warps' minima meet in shared
+//     memory, the CTAs' k smallest in distributed shared memory.  The scan
+//     then inserts only rows with d² <= tau (and below the lane's own
+//     k-th); rows above tau cannot be among the k best, so the result is
+//     unchanged.
+//   * The scan takes four rows at a time: their distances, one compare
+//     each against the lane's limit, and one warp vote, behind which the
+//     rare inserts run in row order.  Four rows' loads and arithmetic
+//     overlap, and the branch is taken by the whole warp or by none.
+//   * Each lane scans its slice in ascending index order with a strict-<
+//     sorted insert, so among equal d² the earlier index stays first.  The
+//     warps' lists then meet in shared memory (one thread per query inserts
+//     warp 1..W-1 into warp 0's list, in slice order), and rank 0 of the
+//     cluster inserts ranks 1..C-1 read through distributed shared memory,
+//     in rank order.  Lists are sorted by (d², index) and merged in
+//     ascending range order, so the same strict < keeps the earliest index
+//     on ties.  Nothing partial goes to device memory.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kBlock = 128;      // queries per block (one per thread)
-constexpr int kTile = 1024;      // bank points per shared-memory tile (16 KB)
-constexpr int kMergeBlock = 128;
-constexpr float kInf = 1e12f;
+constexpr int kTileRows = 128;    // bank rows per warp stage
+constexpr int kSampleRows = 64;   // rows per warp that bound tau
+constexpr int kGroup = 4;         // rows per vote
+constexpr int kMaxWarps = 8;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kFar = 1e12f;
+
+// Dynamic shared memory: per warp two raw tiles (xyz as stored), the packed
+// float4 tile and its lists; then the CTA's k smallest sample minima and
+// tau.
+template <int K, int R>
+struct Layout {
+  static constexpr int kRaw = 2 * kTileRows * 3 * 4;
+  static constexpr int kPacked = kTileRows * 16;
+  static constexpr int kList = 32 * R * K * 8;  // d then index, query-major
+  static constexpr int kWarp = kRaw + kPacked + kList;
+  static constexpr int kSample = 32 * R * K * 4;
+  static constexpr int kTau = 32 * R * 4;
+  static constexpr size_t bytes(int warps) {
+    return static_cast<size_t>(warps) * kWarp + kSample + kTau;
+  }
+};
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 // Insert (d, j) into the ascending list (bd, bi) of length K, dropping the
 // last entry.  Equal distances stay behind the entries already present.
@@ -71,134 +126,427 @@ __device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K],
   }
 }
 
-// grid = (ceil(Q / kBlock), S); split y covers bank rows
-// [y * span, min(M, (y + 1) * span)).  Writes part_d/part_i as (S, K, Q),
-// query fastest, so that both this store and the merge's loads coalesce.
-template <int K>
-__global__ void __launch_bounds__(kBlock)
-knn_partial_kernel(const float* __restrict__ query, int Q,
-                   const float* __restrict__ bank,
-                   const uint8_t* __restrict__ mask, int M, int span,
-                   float* __restrict__ part_d, int* __restrict__ part_i) {
-  __shared__ float4 tile[kTile];
-  const int qi = blockIdx.x * kBlock + threadIdx.x;
-  const int split = blockIdx.y;
-  const int lo = split * span;
-  const int hi = min(M, lo + span);
-
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (qi < Q) {
-    qx = query[3 * (size_t)qi];
-    qy = query[3 * (size_t)qi + 1];
-    qz = query[3 * (size_t)qi + 2];
+// Start the copy of tile `t` of the slice [lo, hi) into raw buffer t & 1,
+// and return the mask bits of the lane's four rows (lane + 32·i).
+__device__ __forceinline__ unsigned stage(float* raw, const float* bank,
+                                          const uint8_t* mask, int lo, int hi,
+                                          int t, int lane) {
+  const int base = lo + t * kTileRows;
+  const int n = min(kTileRows, hi - base);
+  float* dst = raw + (t & 1) * (kTileRows * 3);
+  const float* src = bank + 3 * static_cast<size_t>(base);
+  for (int f = lane; f < 3 * n; f += 32) cp_async4(dst + f, src + f);
+  cp_async_commit();
+  unsigned bits = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = lane + 32 * i;
+    if (r < n && mask[base + r]) bits |= 1u << i;
   }
-  float bd[K];
-  int bi[K];
+  return bits;
+}
+
+// Wait for tile t, then re-pack its rows as float4 minus the centre, +inf
+// for masked rows and rows past the slice.
+__device__ __forceinline__ void land(const float* raw, float4* packed, int n,
+                                     int t, unsigned bits, int lane, float cx,
+                                     float cy, float cz) {
+  cp_async_wait<1>();
+  __syncwarp();
+  const float* src = raw + (t & 1) * (kTileRows * 3);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = lane + 32 * i;
+    float4 v = make_float4(INFINITY, INFINITY, INFINITY, 0.f);
+    if (r < n && ((bits >> i) & 1u)) {
+      v = make_float4(__fsub_rn(src[3 * r], cx), __fsub_rn(src[3 * r + 1], cy),
+                      __fsub_rn(src[3 * r + 2], cz), 0.f);
+    }
+    packed[r] = v;
+  }
+  __syncwarp();
+}
+
+// d² of packed row p and the query (qx, qy, qz): the difference form.
+__device__ __forceinline__ float dist2(const float4& p, float qx, float qy,
+                                       float qz) {
+  const float dx = __fsub_rn(p.x, qx);
+  const float dy = __fsub_rn(p.y, qy);
+  const float dz = __fsub_rn(p.z, qz);
+  return __fmaf_rn(dz, dz, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
+}
+
+// The least d² of packed rows [0, r1) for each of the lane's R queries.
+template <int R>
+__device__ __forceinline__ void sample_min(const float4* packed, int r1,
+                                           const float (&qx)[R],
+                                           const float (&qy)[R],
+                                           const float (&qz)[R],
+                                           float (&gmin)[R]) {
+#pragma unroll 4
+  for (int r = 0; r < r1; ++r) {
+    const float4 p = packed[r];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      gmin[j] = fminf(gmin[j], dist2(p, qx[j], qy[j], qz[j]));
+    }
+  }
+}
+
+// Scan packed rows [r0, r1) (bank index base + r; r1 - r0 a multiple of
+// kGroup, rows past the tile are +inf) for the lane's R queries.
+// lim[j] = min(own k-th, tau⁺): only d < lim can change the result.
+template <int K, int R>
+__device__ __forceinline__ void scan(const float4* packed, int base, int r0,
+                                     int r1, const float (&qx)[R],
+                                     const float (&qy)[R], const float (&qz)[R],
+                                     float (&bd)[R][K], int (&bi)[R][K],
+                                     float (&lim)[R], const float (&tau)[R]) {
+  for (int r = r0; r < r1; r += kGroup) {
+    float d[kGroup][R];
+    bool any = false;
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      const float4 p = packed[r + g];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        d[g][j] = dist2(p, qx[j], qy[j], qz[j]);
+        any |= d[g][j] < lim[j];
+      }
+    }
+    if (__any_sync(kFull, any)) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        bool cj = false;
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) cj |= d[g][j] < lim[j];
+        if (cj) {
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) {
+            if (d[g][j] < lim[j]) {
+              insert<K>(bd[j], bi[j], d[g][j], base + r + g);
+              lim[j] = fminf(bd[j][K - 1], tau[j]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// Thread q < 32R: merge the W warps' lists of query q (slice order) into
+// (md, mi) and store them in warp 0's list area.
+template <int K, int R>
+__device__ __forceinline__ void merge_warps(unsigned char* smem, int W, int q,
+                                            float (&md)[K], int (&mi)[K]) {
+  using L = Layout<K, R>;
+  constexpr int kOff = L::kRaw + L::kPacked;
 #pragma unroll
   for (int s = 0; s < K; ++s) {
-    bd[s] = kInf;
-    bi[s] = 0;
+    md[s] = reinterpret_cast<const float*>(smem + kOff)[q * K + s];
+    mi[s] = reinterpret_cast<const int*>(smem + kOff + L::kList / 2)[q * K + s];
   }
-
-  for (int base = lo; base < hi; base += kTile) {
-    const int n = min(kTile, hi - base);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int r = threadIdx.x; r < n; r += kBlock) {
-      const size_t j = (size_t)base + r;
-      tile[r] = make_float4(bank[3 * j], bank[3 * j + 1], bank[3 * j + 2],
-                            mask[j] ? 1.f : 0.f);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < n; ++r) {
-      const float4 p = tile[r];
-      const float dx = p.x - qx;
-      const float dy = p.y - qy;
-      const float dz = p.z - qz;
-      const float d = dx * dx + dy * dy + dz * dz;
-      if (p.w != 0.f) insert<K>(bd, bi, d, base + r);
-    }
+  for (int w = 1; w < W; ++w) {
+    const unsigned char* a = smem + w * L::kWarp + kOff;
+    const float* wd = reinterpret_cast<const float*>(a);
+    const int* wi = reinterpret_cast<const int*>(a + 32 * R * K * 4);
+#pragma unroll
+    for (int s = 0; s < K; ++s) insert<K>(md, mi, wd[q * K + s], wi[q * K + s]);
   }
+}
 
-  if (qi < Q) {
-    const size_t o = (size_t)split * K * Q + qi;
+// Store the lane's lists in its warp's list area.
+template <int K, int R>
+__device__ __forceinline__ void store_lists(float* ld, int* li, int lane,
+                                            const float (&bd)[R][K],
+                                            const int (&bi)[R][K]) {
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int q = lane + 32 * j;
 #pragma unroll
     for (int s = 0; s < K; ++s) {
-      part_d[o + (size_t)s * Q] = bd[s];
-      part_i[o + (size_t)s * Q] = bi[s];
+      ld[q * K + s] = bd[j][s];
+      li[q * K + s] = bi[j][s];
     }
   }
 }
 
-// One thread per query: merge its S partial lists (in split order) into
-// the final ascending best-K.
-template <int K>
-__global__ void __launch_bounds__(kMergeBlock)
-knn_merge_kernel(const float* __restrict__ part_d,
-                 const int* __restrict__ part_i, int Q, int S,
-                 float* __restrict__ out_d, int* __restrict__ out_i) {
-  const int qi = blockIdx.x * kMergeBlock + threadIdx.x;
-  if (qi >= Q) return;
-  float bd[K];
-  int bi[K];
+// grid = (q_tiles · C), cluster (C, 1, 1), block 32·W threads.  CTA
+// blockIdx.x has query tile blockIdx.x / C and cluster rank c; its warp w
+// scans bank slice c·W + w, rows [slice·span, min(M, (slice+1)·span)).
+template <int K, int R>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+knn_kernel(const float* __restrict__ query, int Q,
+           const float* __restrict__ bank, const uint8_t* __restrict__ mask,
+           int M, const float* __restrict__ center, int span,
+           float* __restrict__ out_d, int* __restrict__ out_i) {
+  using L = Layout<K, R>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const int q = threadIdx.x;
+  const int q0 = (blockIdx.x / C) * 32 * R;
+
+  float cx = 0.f, cy = 0.f, cz = 0.f;
+  if (center != nullptr) {
+    cx = center[0];
+    cy = center[1];
+    cz = center[2];
+  }
+  float qx[R], qy[R], qz[R], lim[R], tau[R];
+  float bd[R][K];
+  int bi[R][K];
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    bd[s] = kInf;
-    bi[s] = 0;
-  }
-#pragma unroll 4
-  for (int c = 0; c < S * K; ++c) {
-    const size_t o = (size_t)c * Q + qi;
-    insert<K>(bd, bi, part_d[o], part_i[o]);
-  }
+  for (int j = 0; j < R; ++j) {
+    const int qi = q0 + lane + 32 * j;
+    qx[j] = qy[j] = qz[j] = 0.f;
+    if (qi < Q) {
+      qx[j] = __fsub_rn(query[3 * static_cast<size_t>(qi)], cx);
+      qy[j] = __fsub_rn(query[3 * static_cast<size_t>(qi) + 1], cy);
+      qz[j] = __fsub_rn(query[3 * static_cast<size_t>(qi) + 2], cz);
+    }
+    lim[j] = kFar;
+    tau[j] = INFINITY;
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    out_d[(size_t)qi * K + s] = bd[s];
-    out_i[(size_t)qi * K + s] = bi[s];
+    for (int s = 0; s < K; ++s) {
+      bd[j][s] = kFar;
+      bi[j][s] = 0;
+    }
   }
+
+  unsigned char* region = smem + warp * L::kWarp;
+  float* raw = reinterpret_cast<float*>(region);
+  float4* packed = reinterpret_cast<float4*>(region + L::kRaw);
+  float* my_d = reinterpret_cast<float*>(region + L::kRaw + L::kPacked);
+  int* my_i = reinterpret_cast<int*>(region + L::kRaw + L::kPacked +
+                                     L::kList / 2);
+  float* sample_d = reinterpret_cast<float*>(smem + W * L::kWarp);
+  float* tau_s = reinterpret_cast<float*>(smem + W * L::kWarp + L::kSample);
+
+  const long long slice = static_cast<long long>(rank) * W + warp;
+  const int lo = static_cast<int>(min(static_cast<long long>(M), slice * span));
+  const int hi = min(M, lo + span);
+  const int tiles = (hi - lo + kTileRows - 1) / kTileRows;
+
+  // tile 0
+  unsigned next_bits = 0;
+  const int n0 = tiles > 0 ? min(kTileRows, hi - lo) : 0;
+  if (tiles > 0) {
+    const unsigned bits = stage(raw, bank, mask, lo, hi, 0, lane);
+    if (tiles > 1) {
+      next_bits = stage(raw, bank, mask, lo, hi, 1, lane);
+    } else {
+      cp_async_commit();  // an empty group keeps the waits uniform
+    }
+    land(raw, packed, n0, 0, bits, lane, cx, cy, cz);
+  }
+
+  // tau: the k-th smallest of the cluster's per-warp sample minima
+  float gmin[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) gmin[j] = INFINITY;
+  sample_min<R>(packed, min(n0, kSampleRows), qx, qy, qz, gmin);
+#pragma unroll
+  for (int j = 0; j < R; ++j) my_d[lane + 32 * j] = gmin[j];
+  __syncthreads();
+  if (q < 32 * R) {
+    float td[K];
+    int ti[K];
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      td[s] = kFar;
+      ti[s] = 0;
+    }
+    for (int w = 0; w < W; ++w) {
+      const float* wd = reinterpret_cast<const float*>(
+          smem + w * L::kWarp + L::kRaw + L::kPacked);
+      insert<K>(td, ti, wd[q], 0);
+    }
+#pragma unroll
+    for (int s = 0; s < K; ++s) sample_d[q * K + s] = td[s];
+  }
+  cluster.sync();  // every CTA's k smallest minima are in its shared memory
+  if (q < 32 * R) {
+    float td[K];
+    int ti[K];
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      td[s] = kFar;
+      ti[s] = 0;
+    }
+    for (int c = 0; c < C; ++c) {
+      const float* pd = cluster.map_shared_rank(sample_d, c);
+      float cd[K];
+#pragma unroll
+      for (int s = 0; s < K; ++s) cd[s] = pd[q * K + s];
+#pragma unroll
+      for (int s = 0; s < K; ++s) insert<K>(td, ti, cd[s], 0);
+    }
+    // d <= tau  <=>  d < tau⁺
+    tau_s[q] = nextafterf(td[K - 1], INFINITY);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    tau[j] = tau_s[lane + 32 * j];
+    lim[j] = fminf(kFar, tau[j]);
+  }
+  scan<K, R>(packed, lo, 0, (n0 + kGroup - 1) & ~(kGroup - 1), qx, qy, qz,
+             bd, bi, lim, tau);
+  __syncwarp();
+
+  for (int t = 1; t < tiles; ++t) {
+    const unsigned bits = next_bits;
+    if (t + 1 < tiles) {
+      next_bits = stage(raw, bank, mask, lo, hi, t + 1, lane);
+    } else {
+      cp_async_commit();
+    }
+    const int base = lo + t * kTileRows;
+    const int n = min(kTileRows, hi - base);
+    land(raw, packed, n, t, bits, lane, cx, cy, cz);
+    scan<K, R>(packed, base, 0, (n + kGroup - 1) & ~(kGroup - 1), qx, qy, qz,
+               bd, bi, lim, tau);
+    __syncwarp();
+  }
+  cp_async_wait<0>();
+
+  // the warps' lists, then one thread per query merges them in slice order
+  store_lists<K, R>(my_d, my_i, lane, bd, bi);
+  __syncthreads();
+  float md[K];
+  int mi[K];
+  float* list_d = reinterpret_cast<float*>(smem + L::kRaw + L::kPacked);
+  int* list_i = reinterpret_cast<int*>(smem + L::kRaw + L::kPacked +
+                                       L::kList / 2);
+  if (q < 32 * R) {
+    merge_warps<K, R>(smem, W, q, md, mi);
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      list_d[q * K + s] = md[s];
+      list_i[q * K + s] = mi[s];
+    }
+  }
+  cluster.sync();  // every CTA's list is in its shared memory
+
+  // rank 0: ranks 1..C-1 through distributed shared memory, in rank order
+  if (rank == 0 && q < 32 * R) {
+    for (int c = 1; c < C; ++c) {
+      const float* pd = cluster.map_shared_rank(list_d, c);
+      const int* pi = cluster.map_shared_rank(list_i, c);
+      float cd[K];
+      int ci[K];
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        cd[s] = pd[q * K + s];
+        ci[s] = pi[q * K + s];
+      }
+#pragma unroll
+      for (int s = 0; s < K; ++s) insert<K>(md, mi, cd[s], ci[s]);
+    }
+    const int qi = q0 + q;
+    if (qi < Q) {
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        out_d[static_cast<size_t>(qi) * K + s] = md[s];
+        out_i[static_cast<size_t>(qi) * K + s] = mi[s];
+      }
+    }
+  }
+  cluster.sync();  // no CTA leaves while rank 0 still reads its lists
 }
 
-template <int K>
+template <int K, int R>
 cudaError_t launch(const float* query, const float* bank, const uint8_t* mask,
-                   float* part_d, int* part_i, float* out_d, int* out_i,
-                   int Q, int M, int S, int span, cudaStream_t stream) {
-  const dim3 grid((Q + kBlock - 1) / kBlock, S);
-  knn_partial_kernel<K><<<grid, kBlock, 0, stream>>>(
-      query, Q, bank, mask, M, span, part_d, part_i);
-  cudaError_t err = cudaGetLastError();
+                   const float* center, float* out_d, int* out_i, int Q,
+                   int M, int warps, int C, int span, cudaStream_t stream) {
+  const int tiles = (Q + 32 * R - 1) / (32 * R);
+  const size_t smem = Layout<K, R>::bytes(warps);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        knn_kernel<K, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * C, 1, 1);
+  cfg.blockDim = dim3(32 * warps, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, knn_kernel<K, R>, query, Q,
+                                             bank, mask, M, center, span,
+                                             out_d, out_i);
   if (err != cudaSuccess) return err;
-  knn_merge_kernel<K><<<(Q + kMergeBlock - 1) / kMergeBlock, kMergeBlock, 0,
-                        stream>>>(part_d, part_i, Q, S, out_d, out_i);
   return cudaGetLastError();
+}
+
+struct Args {
+  const float *q, *t, *c;
+  const uint8_t* m;
+  float* od;
+  int* oi;
+  int Q, M, warps, C, span;
+  cudaStream_t st;
+};
+
+template <int R>
+cudaError_t dispatch_k(int k, const Args& a) {
+#define LMONO_KNN_CASE(K)                                                     \
+  case K:                                                                     \
+    return launch<K, R>(a.q, a.t, a.m, a.c, a.od, a.oi, a.Q, a.M, a.warps,    \
+                        a.C, a.span, a.st);
+  switch (k) {
+    LMONO_KNN_CASE(1)
+    LMONO_KNN_CASE(2)
+    LMONO_KNN_CASE(3)
+    LMONO_KNN_CASE(4)
+    LMONO_KNN_CASE(5)
+    LMONO_KNN_CASE(6)
+    LMONO_KNN_CASE(7)
+    LMONO_KNN_CASE(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef LMONO_KNN_CASE
 }
 
 }  // namespace
 
-// query (Q,3) f32, bank (M,3) f32, mask (M,) bool as bytes; scratch
-// part_d/part_i (S,k,Q); outputs out_d (Q,k) f32, out_i (Q,k) int32.  All
-// contiguous on the current device.  Enqueues on `stream` without
-// synchronising and returns cudaGetLastError() (0 on success).
+// query (Q,3) f32, bank (M,3) f32, mask (M,) bool as bytes, center (3,) f32
+// or null; outputs out_d (Q,k) f32 and out_i (Q,k) int32.  All contiguous
+// on the current device.  The plan (ops/cuda/knn.py:knn_plan): R queries
+// per thread, `warps` warps per CTA, clusters of C CTAs, `span` bank rows
+// per warp slice, with C · warps · span >= M.  Enqueues on `stream` without
+// synchronising and returns the launch's CUDA error (0 on success).
 extern "C" int lmono_knn(const void* query, const void* bank, const void* mask,
-                         void* part_d, void* part_i, void* out_d, void* out_i,
-                         int Q, int M, int k, int S, int span, void* stream) {
-  const float* q = static_cast<const float*>(query);
-  const float* t = static_cast<const float*>(bank);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  float* pd = static_cast<float*>(part_d);
-  int* pi = static_cast<int*>(part_i);
-  float* od = static_cast<float*>(out_d);
-  int* oi = static_cast<int*>(out_i);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Q <= 0 || M <= 0 || S <= 0 || span <= 0) return (int)cudaErrorInvalidValue;
-  switch (k) {
-    case 1: return (int)launch<1>(q, t, m, pd, pi, od, oi, Q, M, S, span, st);
-    case 2: return (int)launch<2>(q, t, m, pd, pi, od, oi, Q, M, S, span, st);
-    case 3: return (int)launch<3>(q, t, m, pd, pi, od, oi, Q, M, S, span, st);
-    case 4: return (int)launch<4>(q, t, m, pd, pi, od, oi, Q, M, S, span, st);
-    case 5: return (int)launch<5>(q, t, m, pd, pi, od, oi, Q, M, S, span, st);
-    case 6: return (int)launch<6>(q, t, m, pd, pi, od, oi, Q, M, S, span, st);
-    case 7: return (int)launch<7>(q, t, m, pd, pi, od, oi, Q, M, S, span, st);
-    case 8: return (int)launch<8>(q, t, m, pd, pi, od, oi, Q, M, S, span, st);
-    default: return (int)cudaErrorInvalidValue;
+                         const void* center, void* out_d, void* out_i, int Q,
+                         int M, int k, int R, int warps, int cluster, int span,
+                         void* stream) {
+  if (Q <= 0 || M <= 0 || span <= 0 || warps < 1 || warps > kMaxWarps ||
+      cluster < 1 || cluster > 8 ||
+      static_cast<long long>(cluster) * warps * span < M)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a = {static_cast<const float*>(query),
+                  static_cast<const float*>(bank),
+                  static_cast<const float*>(center),
+                  static_cast<const uint8_t*>(mask),
+                  static_cast<float*>(out_d),
+                  static_cast<int*>(out_i),
+                  Q, M, warps, cluster, span,
+                  static_cast<cudaStream_t>(stream)};
+  switch (R) {
+    case 1: return static_cast<int>(dispatch_k<1>(k, a));
+    case 2: return static_cast<int>(dispatch_k<2>(k, a));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

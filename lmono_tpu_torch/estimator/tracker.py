@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from lmono_tpu_torch import default_device
 from lmono_tpu_torch.camera.base import CameraModel
 from lmono_tpu_torch.config import TrackerConfig
 from lmono_tpu_torch.ops.corners import detect_grid
@@ -131,7 +132,8 @@ def tracker_step(state: TrackerState, image: torch.Tensor, cam: CameraModel,
 
 
 class FeatureTracker:
-    """Host-side runner holding the tracker state on one device.
+    """Host-side runner holding the tracker state on one device, the CUDA
+    card unless another is named (`default_device`).
 
     `process` runs one image per call.  `frame` is the host frame counter;
     the RANSAC noise comes from `generator` (one is made from seed 0 on
@@ -143,7 +145,7 @@ class FeatureTracker:
                  generator: torch.Generator | None = None):
         self.cam = cam
         self.cfg = cfg
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = default_device(device)
         self.state = TrackerState.init(cfg, height, width, self.device)
         self.frame = 0
         if generator is None:

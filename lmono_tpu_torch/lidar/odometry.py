@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from lmono_tpu_torch import default_device
 from lmono_tpu_torch.config import LidarConfig
 from lmono_tpu_torch.lidar.features import extract_features
 from lmono_tpu_torch.lidar.registration import register
@@ -129,12 +130,13 @@ class LidarOdometry:
 
     `process` runs one sweep per call; `process_chunk` runs a stacked
     (F, ...) batch of sweeps.  Sweeps may be numpy arrays or tensors; they
-    are moved to `device`.  `frame` is the host frame counter.
+    are moved to `device`, the CUDA card unless another is named
+    (`default_device`).  `frame` is the host frame counter.
     """
 
     def __init__(self, cfg: LidarConfig, device=None):
         self.cfg = cfg
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = default_device(device)
         self.state = OdometryState.init(cfg, self.device)
         self.frame = 0
 

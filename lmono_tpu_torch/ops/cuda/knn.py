@@ -5,6 +5,11 @@ source is built at first use by `ops/cuda/_build.py` (nvcc, sm_90a, a plain
 C entry point loaded with `ctypes`).  Nothing is compiled or loaded when
 this module is imported.
 
+One call is one launch: the bank is split over the CTAs of a thread-block
+cluster and the warps of each CTA, and the partial lists are merged in
+shared and distributed shared memory.  `knn_plan` is the launch plan, a
+pure function of the shapes and the card's SM count.
+
 `knn_kernel_launches` counts the calls that launched the kernel; the plain
 PyTorch version is `lmono_tpu_torch.ops.knn.knn_plain`.
 """
@@ -12,19 +17,67 @@ PyTorch version is `lmono_tpu_torch.ops.knn.knn_plain`.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from lmono_tpu_torch.ops.cuda._build import build_library
 
-_BLOCK = 128          # queries per block: kBlock in csrc/knn.cu
-_MIN_SPAN = 256       # fewest bank rows worth a split of their own
-_BLOCKS_PER_SM = 4    # query-block x split blocks to aim for on each SM
 MAX_K = 8
+WARPS = 8              # warps per CTA: kMaxWarps in csrc/knn.cu
+MAX_CLUSTER = 8        # the portable cluster size
+MIN_SLICE_ROWS = 256   # fewest bank rows worth a warp slice of their own
+QUERIES_PER_THREAD = (2, 1)      # R, most preferred first
 
 knn_kernel_launches = 0
 _lib = None
 _build_report = ""
+
+
+class KnnPlan(NamedTuple):
+    R: int           # queries per thread
+    warps: int       # warps per CTA, each scanning its own bank slice
+    cluster: int     # CTAs per cluster, each covering C consecutive slices
+    span: int        # bank rows per warp slice
+    q_tiles: int     # query tiles of 32·R queries
+    grid: int        # CTAs: q_tiles · cluster
+
+    def slices(self, M: int) -> list[tuple[int, int, int, int]]:
+        """(rank, warp, lo, hi) of every warp slice of one query tile, in
+        merge order; rows past M are empty slices."""
+        out = []
+        for rank in range(self.cluster):
+            for warp in range(self.warps):
+                s = rank * self.warps + warp
+                lo = min(M, s * self.span)
+                out.append((rank, warp, lo, min(M, lo + self.span)))
+        return out
+
+
+@functools.lru_cache(maxsize=None)
+def knn_plan(Q: int, M: int, sms: int) -> KnnPlan:
+    """Launch plan for Q queries against M bank rows on a card of `sms` SMs.
+
+    The cluster is as wide as the bank allows (slices of at least
+    MIN_SLICE_ROWS rows, at most MAX_CLUSTER CTAs).  R is chosen so that
+    the most queries any SM runs, ceil(CTAs / sms) · 32R, is least; among
+    equals the larger R, whose shared-memory reads feed more pairs (R = 4
+    loses on the card: 128 queries a warp meet too many candidate rows).
+    """
+    if Q <= 0 or M <= 0 or sms <= 0:
+        raise ValueError(f"knn_plan needs Q, M, sms > 0, got {Q}, {M}, {sms}")
+    C = max(1, min(MAX_CLUSTER, -(-M // (WARPS * MIN_SLICE_ROWS))))
+    best = None
+    for R in QUERIES_PER_THREAD:
+        tiles = -(-Q // (32 * R))
+        load = -(-tiles * C // sms) * 32 * R
+        if best is None or load < best[0]:
+            best = (load, R, tiles)
+    _, R, tiles = best
+    span = -(-M // (C * WARPS))
+    return KnnPlan(R=R, warps=WARPS, cluster=C, span=span, q_tiles=tiles,
+                   grid=tiles * C)
 
 
 def build() -> str:
@@ -37,35 +90,34 @@ def build() -> str:
     if _lib is not None:
         return _build_report
     lib, _build_report = build_library("knn.cu")
-    lib.lmono_knn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    lib.lmono_knn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                               + [ctypes.c_void_p])
     lib.lmono_knn.restype = ctypes.c_int
     _lib = lib
     return _build_report
 
 
-def _splits(Q: int, M: int, device: torch.device) -> int:
-    """Bank splits (gridDim.y) so that the grid fills the card."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q_blocks = -(-Q // _BLOCK)
-    want = -(-_BLOCKS_PER_SM * sms // q_blocks)
-    return max(1, min(want, -(-M // _MIN_SPAN)))
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def knn_cuda(query: torch.Tensor, target: torch.Tensor,
-             target_mask: torch.Tensor, k: int
+             target_mask: torch.Tensor, k: int,
+             center: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact KNN on the card: query (Q,3) f32, target (M,3) f32, mask (M,)
-    bool, all contiguous on one CUDA device; 1 <= k <= 8.
+    bool, and an optional centre (3,) f32 subtracted from both point sets
+    in the kernel, all contiguous on one CUDA device; 1 <= k <= 8.
 
     Returns (d² (Q,k) f32 ascending, idx (Q,k) int32), enqueued on the
     current stream without synchronising.  Raises on any other input.
     """
     global knn_kernel_launches
-    tensors = (query, target, target_mask)
+    tensors = (query, target, target_mask) + (() if center is None else (center,))
     if not all(t.is_cuda for t in tensors):
         raise ValueError("knn_cuda needs CUDA tensors")
-    if not (query.device == target.device == target_mask.device):
+    if any(t.device != query.device for t in tensors):
         raise ValueError("knn_cuda inputs must share one device")
     if query.dtype != torch.float32 or target.dtype != torch.float32:
         raise TypeError("knn_cuda needs float32 points")
@@ -78,6 +130,9 @@ def knn_cuda(query: torch.Tensor, target: torch.Tensor,
     Q, M = query.shape[0], target.shape[0]
     if tuple(target_mask.shape) != (M,):
         raise ValueError(f"mask must be ({M},), got {tuple(target_mask.shape)}")
+    if center is not None and (center.dtype != torch.float32
+                               or tuple(center.shape) != (3,)):
+        raise ValueError("center must be a (3,) float32 tensor")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("knn_cuda needs contiguous tensors")
     if not 1 <= k <= MAX_K:
@@ -88,19 +143,16 @@ def knn_cuda(query: torch.Tensor, target: torch.Tensor,
         raise ValueError("knn_cuda takes fewer than 2^31 / 3 points")
     build()
     dev = query.device
-    S = _splits(Q, M, dev)
-    span = -(-M // S)
-    part_d = torch.empty((S, k, Q), dtype=torch.float32, device=dev)
-    part_i = torch.empty((S, k, Q), dtype=torch.int32, device=dev)
+    plan = knn_plan(Q, M, _sms(dev))
     out_d = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib.lmono_knn(
             query.data_ptr(), target.data_ptr(), target_mask.data_ptr(),
-            part_d.data_ptr(), part_i.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(),
-            Q, M, k, S, span, stream)
+            None if center is None else center.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), Q, M, k, plan.R, plan.warps,
+            plan.cluster, plan.span, stream)
     if err != 0:
         raise RuntimeError(f"knn kernel launch failed: CUDA error {err}")
     knn_kernel_launches += 1

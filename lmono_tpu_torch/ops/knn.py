@@ -63,15 +63,17 @@ def knn(query: torch.Tensor, target: torch.Tensor, target_mask: torch.Tensor,
     query: (Q, 3); target: (M, 3); target_mask: (M,) bool.
     Returns (dists2 (Q, k), idx (Q, k) int32).  `center` recentres both
     point sets first (distances are translation invariant; small
-    magnitudes keep f32 d² accurate).
+    magnitudes keep f32 d² accurate); the CUDA kernel subtracts it as it
+    loads the points, with the same f32 rounding.
     """
-    if center is not None:
-        query = query - center
-        target = target - center
     if query.is_cuda:
         from lmono_tpu_torch.ops.cuda.knn import knn_cuda
         return knn_cuda(query.contiguous(), target.contiguous(),
-                        target_mask.contiguous(), k)
+                        target_mask.contiguous(), k,
+                        center=None if center is None else center.contiguous())
+    if center is not None:
+        query = query - center
+        target = target - center
     return knn_plain(query, target, target_mask, k)
 
 

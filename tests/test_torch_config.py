@@ -73,3 +73,15 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_chip_scripts_import_no_jax():
+    # the scripts the card runs: neither they nor what they import reach JAX
+    code = ("import sys\n"
+            "import chip_smoke, chip_perf\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'lmono_tpu'))\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

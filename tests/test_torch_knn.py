@@ -1,12 +1,15 @@
 """Exact KNN of the port (`lmono_tpu_torch.ops.knn`) against the JAX
 package's CPU path (`lmono_tpu.ops.knn.knn`) and its Pallas kernel in
-interpret mode (`knn_pallas`, as `tests/test_pallas_knn.py` runs it).
+interpret mode (`knn_pallas`, as `tests/test_pallas_knn.py` runs it), and
+the CUDA kernel's launch plan (`ops/cuda/knn.py:knn_plan`).
 
 Tolerances: rtol 1e-4 / atol 1e-3 on sorted d² (the references use the
 q²−2q·t+t² expansion, the port the difference form), and equal index sets
 wherever d² < 1e11 (missing neighbours are 1e12 in every version).  The
-`gpu` test holds the CUDA kernel to the plain version at rtol 1e-5 /
-atol 1e-4: both compute the difference form in f32.  The JAX references
+`gpu` tests hold the CUDA kernel to the plain version at rtol 1e-5 /
+atol 1e-4 (both compute the difference form in f32), with index lists
+equal where bank points are duplicated across warp slices and cluster
+ranks.  The JAX references
 are imported inside the tests that use them, so that the `gpu` test also
 runs on a host without JAX:
     python -m pytest tests/test_torch_knn.py -m gpu --noconftest
@@ -136,8 +139,107 @@ def test_cuda_wrapper_rejects_cpu_tensors():
         knn_cuda(torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(mask), 5)
 
 
+# the odometry's shapes (kitti edge and plane, synthetic edge and plane),
+# ragged ones, and a bank smaller than a warp's share
+PLAN_SHAPES = [(1536, 32768), (4096, 65536), (512, 8192), (1024, 16384),
+               (777, 3001), (1, 1), (4097, 65537), (33, 70000)]
+
+
+@pytest.mark.parametrize("Q,M", PLAN_SHAPES)
+@pytest.mark.parametrize("sms", [132, 114])
+def test_knn_plan_covers_the_bank_once(Q, M, sms):
+    from lmono_tpu_torch.ops.cuda.knn import MAX_CLUSTER, QUERIES_PER_THREAD, knn_plan
+
+    plan = knn_plan(Q, M, sms)
+    assert 1 <= plan.cluster <= MAX_CLUSTER and plan.R in QUERIES_PER_THREAD
+    assert plan.grid % plan.cluster == 0
+    assert plan.grid == plan.q_tiles * plan.cluster
+    assert plan.q_tiles * 32 * plan.R >= Q > (plan.q_tiles - 1) * 32 * plan.R
+    covered = np.zeros(M, np.int64)
+    prev_hi, prev = 0, (0, -1)
+    for rank, warp, lo, hi in plan.slices(M):
+        # ascending, contiguous ranges by rank, then by warp: the merge order
+        assert (rank, warp) > prev and lo == prev_hi and hi >= lo
+        covered[lo:hi] += 1
+        prev_hi, prev = hi, (rank, warp)
+    assert prev_hi == M and (covered == 1).all()
+
+
+def test_knn_plan_at_the_main_path_shapes():
+    # on an H100 (132 SMs), the plans the card measured best: full clusters
+    # at kitti scale, two queries a thread where that still fills the card
+    from lmono_tpu_torch.ops.cuda.knn import knn_plan
+
+    assert knn_plan(4096, 65536, 132)[:3] == (2, 8, 8)
+    assert knn_plan(1536, 32768, 132)[:3] == (1, 8, 8)
+    assert knn_plan(1024, 16384, 132)[:3] == (2, 8, 8)
+    assert knn_plan(512, 8192, 132)[:3] == (1, 8, 4)
+    for Q, M in PLAN_SHAPES:
+        plan = knn_plan(Q, M, 132)
+        assert plan.grid >= min(132, plan.q_tiles * plan.cluster)
+    with pytest.raises(ValueError):
+        knn_plan(0, 10, 132)
+
+
+def _tie_case(Q, M, dev):
+    """Bank points duplicated across the warp slices and cluster ranks of
+    the kernel's plan, with queries sitting on them: index lists must match
+    the plain version's exactly."""
+    from lmono_tpu_torch.ops.cuda.knn import _sms, knn_plan
+
+    rng = np.random.default_rng(11)
+    t = (rng.normal(size=(M, 3)) * 30.0 + 100.0).astype(np.float32)
+    plan = knn_plan(Q, M, _sms(dev))
+    bounds = sorted({lo for _, _, lo, _ in plan.slices(M) if 0 < lo < M})
+    # copies of one point on both sides of each boundary
+    for g, b in enumerate(bounds[:12]):
+        src = t[(37 * g) % M].copy()
+        for j in (b - 2, b - 1, b, b + 1):
+            if 0 <= j < M:
+                t[j] = src
+    q = t[(37 * np.arange(Q)) % M].copy()
+    mask = np.ones(M, bool)
+    mask[bounds[:12:3]] = False
+    return q, t, mask
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("Q,M,keep", [(1536, 32768, 0.9), (777, 3001, 0.001)])
+@pytest.mark.parametrize("Q,M", [(1536, 32768), (300, 5000)])
+def test_cuda_kernel_keeps_the_earliest_index_on_ties(Q, M):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    q, t, mask = _tie_case(Q, M, dev)
+    args = [torch.from_numpy(x).to(dev) for x in (q, t, mask)]
+    d, i = tk.knn(*args, 5)
+    d_p, i_p = tk.knn_plain(*args, 5)
+    assert torch.equal(i.cpu(), i_p.cpu())
+    torch.testing.assert_close(d.cpu(), d_p.cpu(), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_recentres_in_the_kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lmono_tpu_torch.ops.cuda import knn as ck
+
+    q, t, mask = _case(12, 1536, 32768, 0.9, scale=20.0, offset=1000.0)
+    dev = torch.device("cuda")
+    tq, tt, tm = (torch.from_numpy(x).to(dev) for x in (q, t, mask))
+    c = torch.tensor([1000.0, 990.0, 1010.0], device=dev)
+    before = ck.knn_kernel_launches
+    d, i = tk.knn(tq, tt, tm, 5, center=c)
+    assert ck.knn_kernel_launches == before + 1
+    # the same f32 rounding as subtracting the centre with torch first
+    d0, i0 = tk.knn(tq - c, tt - c, tm, 5)
+    assert torch.equal(d, d0) and torch.equal(i, i0)
+    d_p, i_p = tk.knn_plain(tq - c, tt - c, tm, 5)
+    torch.testing.assert_close(d.cpu(), d_p.cpu(), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q,M,keep", [(1536, 32768, 0.9), (777, 3001, 0.001),
+                                      (4096, 65536, 0.9), (512, 8192, 0.9)])
 def test_cuda_kernel_matches_plain(Q, M, keep):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

@@ -5,17 +5,19 @@ package's two routes, on the same numpy inputs:
   `lmono_tpu.ops.pallas.lk.lk_level_pallas` in interpret mode (as
   `tests/test_pallas_lk.py` runs it);
 * `lk_level_plain(pallas=False)` against the vmapped `lmono_tpu.ops.lk.lk_level`;
-* `track_pyramid` / `track_fb` against the JAX package's TPU route (Pallas on
-  levels at least 128 px wide, vmapped below), with `jax.default_backend`
-  patched to "tpu" and the Pallas kernel to interpret mode.
+* `track_fb_plain` against the JAX package's TPU route (Pallas on levels at
+  least 128 px wide, vmapped below), with `jax.default_backend` patched to
+  "tpu" and the Pallas kernel to interpret mode.
 
 Tolerances: pt1 within 1e-3 px where both are ok; ok equal except on rows
 within 1e-4 of a gate (the last step against its threshold, det against
 1e-6, the position against the border), which are printed.  The cases hold
 features near all four borders, a flat patch (det = 0), a diverging slot and
-non-finite guesses (XLA's float→int rule).  The `gpu` test holds the CUDA
-kernel to the plain version on the card with the same tolerances; it runs on
-a host without JAX:
+non-finite guesses (XLA's float→int rule).  The `gpu` tests hold the CUDA
+kernel to the plain versions on the card: one level with the same
+tolerances, and the fused forward-backward `track_fb` against
+`track_fb_plain` with ok equal on at least 99% of slots and pts1 within
+1e-3 px where both are ok.  They run on a host without JAX:
     python -m pytest tests/test_torch_lk.py -m gpu --noconftest
 """
 
@@ -216,12 +218,16 @@ def test_track_fb_matches_the_tpu_route(jax_tpu_route):
     def tt(xs):
         return [torch.from_numpy(x) for x in xs]
 
+    args = (tt(pyr0), [tuple(tt(g)) for g in g0], tt(pyr1),
+            [tuple(tt(g)) for g in g1], torch.from_numpy(pts),
+            torch.from_numpy(mask))
     calls = tlk.lk_plain_calls
-    p, ok = tlk.track_fb(tt(pyr0), [tuple(tt(g)) for g in g0], tt(pyr1),
-                         [tuple(tt(g)) for g in g1], torch.from_numpy(pts),
-                         torch.from_numpy(mask), patch=PATCH, iters=ITERS,
-                         eps=EPS, fb_thresh=0.5)
+    p, ok = tlk.track_fb_plain(*args, patch=PATCH, iters=ITERS, eps=EPS,
+                               fb_thresh=0.5)
     assert tlk.lk_plain_calls == calls + 2 * len(pyr0)
+    # on CPU tensors track_fb is the plain version
+    p2, ok2 = tlk.track_fb(*args, patch=PATCH, iters=ITERS, eps=EPS, fb_thresh=0.5)
+    assert torch.equal(ok2, ok) and torch.equal(p2, p)
     p_ref, ok_ref = np.asarray(p_ref), np.asarray(ok_ref)
     assert ok_ref.sum() >= 30
     np.testing.assert_array_equal(ok.numpy(), ok_ref)
@@ -233,41 +239,83 @@ def test_track_fb_matches_the_tpu_route(jax_tpu_route):
 def test_semantics_follow_the_level_width():
     (pyr0, g0), (pyr1, _) = _pyramids(9, H=64, W=256, levels=2)
     seen = []
-    orig = tlk.lk_level
+    orig = tlk.lk_level_plain
 
     def spy(*args, pallas, eps):
         seen.append((args[0].shape[1], pallas))
         return orig(*args, pallas=pallas, eps=eps)
 
-    tlk.lk_level = spy
+    tlk.lk_level_plain = spy
     try:
-        tlk.track_pyramid([torch.from_numpy(p) for p in pyr0],
-                          [tuple(torch.from_numpy(x) for x in g) for g in g0],
-                          [torch.from_numpy(p) for p in pyr1],
-                          torch.full((4, 2), 30.0), torch.ones(4, dtype=torch.bool),
-                          PATCH, ITERS, EPS)
+        tlk.track_pyramid_plain([torch.from_numpy(p) for p in pyr0],
+                                [tuple(torch.from_numpy(x) for x in g) for g in g0],
+                                [torch.from_numpy(p) for p in pyr1],
+                                torch.full((4, 2), 30.0),
+                                torch.ones(4, dtype=torch.bool), PATCH, ITERS, EPS)
     finally:
-        tlk.lk_level = orig
+        tlk.lk_level_plain = orig
     assert seen == [(128, True), (256, True)]
     assert tlk.PALLAS_MIN_WIDTH == 128
 
 
+@pytest.mark.parametrize("shapes,pallas", [
+    ([(376, 1241), (188, 620), (94, 310), (47, 155)], [True] * 4),
+    ([(256, 512), (128, 256), (64, 128)], [True] * 3),
+    ([(128, 256), (64, 128), (32, 64)], [True, True, False]),
+    ([(40, 127)], [False]),
+])
+def test_level_table_follows_the_pyramid_rule(shapes, pallas):
+    # the table the CUDA wrapper hands the kernel: shape, semantics by the
+    # level's width as track_pyramid_plain picks it, and an exact 2^-level scale
+    table = tlk.level_table(shapes, 21)
+    assert [(t.H, t.W) for t in table] == shapes
+    assert [t.pallas for t in table] == pallas
+    assert [t.pallas for t in table] == [W >= tlk.PALLAS_MIN_WIDTH for _, W in shapes]
+    pts = torch.tensor([[1241.0 / 3, 376.0 / 7], [0.1, 1e-30]])
+    for lvl, t in enumerate(table):
+        assert t.scale == 2.0 ** -lvl
+        assert torch.equal(pts * t.scale, pts / 2.0 ** lvl)
+
+
+def test_level_table_rejects_levels_too_small_for_the_patch():
+    # a TPU-semantics level needs (P+1)² pixels for its slab
+    with pytest.raises(ValueError):
+        tlk.level_table([(21, 256)], 21)
+    with pytest.raises(ValueError):
+        tlk.track_pyramid_plain([torch.zeros(21, 256)], [(torch.zeros(21, 256),) * 2],
+                                [torch.zeros(21, 256)], torch.zeros(1, 2),
+                                torch.ones(1, dtype=torch.bool), 21, 10, 0.01)
+    assert [t.pallas for t in tlk.level_table([(22, 256), (11, 100)], 21)] == [True, False]
+
+
 def test_cpu_tensors_take_the_plain_version():
-    args = _torch(*_scene(1, 32, 48), *_points(1, 32, 48, n=16))
+    # track_fb on CPU tensors is track_fb_plain: one lk_level_plain call per
+    # level and direction, the same bits
+    (pyr0, g0), (pyr1, g1) = _pyramids(1, H=64, W=256, levels=2)
+    args = ([torch.from_numpy(p) for p in pyr0],
+            [tuple(torch.from_numpy(x) for x in g) for g in g0],
+            [torch.from_numpy(p) for p in pyr1],
+            [tuple(torch.from_numpy(x) for x in g) for g in g1],
+            torch.from_numpy(_points(1, 64, 256, n=16)[0]),
+            torch.ones(16, dtype=torch.bool))
     calls = tlk.lk_plain_calls
-    a = tlk.lk_level(*args, PATCH, ITERS, pallas=True)
-    b = tlk.lk_level_plain(*args, PATCH, ITERS, pallas=True)
-    assert tlk.lk_plain_calls == calls + 2
+    a = tlk.track_fb(*args, patch=PATCH, iters=ITERS, eps=EPS)
+    assert tlk.lk_plain_calls == calls + 4
+    b = tlk.track_fb_plain(*args, patch=PATCH, iters=ITERS, eps=EPS)
     assert torch.equal(a[1], b[1])
     torch.testing.assert_close(a[0], b[0], equal_nan=True, rtol=0, atol=0)
 
 
 def test_cuda_wrapper_rejects_cpu_tensors():
-    from lmono_tpu_torch.ops.cuda.lk import lk_level_cuda
+    from lmono_tpu_torch.ops.cuda.lk import lk_level_cuda, track_fb_cuda
 
     args = _torch(*_scene(2, 32, 48), *_points(2, 32, 48, n=16))
     with pytest.raises(ValueError):
         lk_level_cuda(*args, PATCH, ITERS, True, 0.1)
+    img0, ix0, iy0, img1, pts, _ = args
+    with pytest.raises(ValueError):
+        track_fb_cuda([img0], [(ix0, iy0)], [img1], [(ix0, iy0)], pts,
+                      torch.ones(16, dtype=torch.bool), PATCH, ITERS, EPS)
 
 
 @pytest.mark.gpu
@@ -281,9 +329,44 @@ def test_cuda_kernel_matches_plain(pallas, H, W, n):
     dev = torch.device("cuda")
     args = _torch(*_scene(H, H, W), *_points(W, H, W, n=n), device=dev)
     before = ck.lk_kernel_launches
-    p, ok = tlk.lk_level(*args, PATCH, ITERS, pallas=pallas, eps=EPS)
+    p, ok = ck.lk_level_cuda(*args, PATCH, ITERS, pallas,
+                             tlk._PALLAS_STEP_THRESH if pallas else 10 * EPS)
     assert ck.lk_kernel_launches == before + 1
     p_p, ok_p = tlk.lk_level_plain(*args, PATCH, ITERS, pallas, EPS)
     _check(p_p.cpu().numpy(), ok_p.cpu().numpy(), p.cpu().numpy(),
            ok.cpu().numpy(), args, pallas)
     assert not ok[8]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W,levels,n", [(376, 1241, 4, 150), (256, 512, 3, 96),
+                                          (128, 256, 3, 48)])
+def test_fused_track_fb_matches_plain(H, W, levels, n):
+    # one launch for every level and both directions; the last case mixes
+    # the two semantics (a 64 px level) inside the launch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lmono_tpu_torch.ops.cuda import lk as ck
+
+    dev = torch.device("cuda")
+    (pyr0, g0), (pyr1, g1) = _pyramids(H + levels, H=H, W=W, levels=levels)
+    rng = np.random.default_rng(n)
+    pts = (rng.random((n, 2)) * [W - 1, H - 1]).astype(np.float32)
+    pts[:4] = [[2.0, 2.0], [W - 3.0, 3.0], [1.5, H - 3.0], [W - 6.0, H - 4.0]]
+    mask = rng.random(n) < 0.9
+
+    def cuda(xs):
+        return [torch.from_numpy(x).to(dev) for x in xs]
+
+    args = (cuda(pyr0), [tuple(cuda(g)) for g in g0], cuda(pyr1),
+            [tuple(cuda(g)) for g in g1], torch.from_numpy(pts).to(dev),
+            torch.from_numpy(mask).to(dev))
+    before, calls = ck.lk_kernel_launches, tlk.lk_plain_calls
+    p, ok = tlk.track_fb(*args, patch=PATCH, iters=ITERS, eps=EPS)
+    assert ck.lk_kernel_launches == before + 1 and tlk.lk_plain_calls == calls
+    p_p, ok_p = tlk.track_fb_plain(*args, patch=PATCH, iters=ITERS, eps=EPS)
+    p, ok, p_p, ok_p = (x.cpu() for x in (p, ok, p_p, ok_p))
+    assert (ok == ok_p).float().mean() >= 0.99
+    both = ok & ok_p
+    assert both.sum() >= n // 3
+    torch.testing.assert_close(p[both], p_p[both], rtol=0, atol=PX_ATOL)

@@ -78,9 +78,9 @@ def test_slice_matches_jax_frame_by_frame(frames):
 
 def test_process_matches_process_chunk(frames):
     cfg, stacked = frames[:2]
-    a = to.LidarOdometry(cfg)
+    a = to.LidarOdometry(cfg, device="cpu")
     chunk = a.process_chunk({k: v[:3] for k, v in stacked.items()})
-    b = to.LidarOdometry(cfg)
+    b = to.LidarOdometry(cfg, device="cpu")
     for i in range(3):
         out = b.process({k: v[i] for k, v in stacked.items()})
         assert torch.equal(out["pose"].t, chunk["pose"].t[i])
@@ -108,3 +108,14 @@ def test_state_carried_over_from_jax(frames):
                                rtol=0, atol=T_ATOL_M)
     np.testing.assert_allclose(tout["pose"].q.numpy(), np.asarray(jout["pose"].q[0]),
                                rtol=0, atol=Q_ATOL)
+
+
+def test_runs_on_the_card_unless_asked_for_the_cpu():
+    # no quiet CPU default: the card, or an error naming the way to the CPU
+    cfg = synthetic_config().lidar
+    if torch.cuda.is_available():
+        assert to.LidarOdometry(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            to.LidarOdometry(cfg)
+    assert to.LidarOdometry(cfg, device="cpu").device == torch.device("cpu")

@@ -120,7 +120,8 @@ def _median_error(outs, n):
 def test_free_running_track_error_matches(jax_tpu_route):
     n = 6
     s = JState.init(TCFG, CAM.height, CAM.width)
-    tracker = FeatureTracker(camera_from_config(TCAM), TCFG, CAM.height, CAM.width)
+    tracker = FeatureTracker(camera_from_config(TCAM), TCFG, CAM.height, CAM.width,
+                             device="cpu")
     outs_j, outs_t = [], []
     for i, img in enumerate(_frames(n)):
         key, g = _gumbel(20 + i)
@@ -140,7 +141,7 @@ def test_feature_tracker_runs_from_its_generator():
     imgs = _frames(3)
 
     def run(seed):
-        tr = FeatureTracker(cam, TCFG, CAM.height, CAM.width,
+        tr = FeatureTracker(cam, TCFG, CAM.height, CAM.width, device="cpu",
                             generator=torch.Generator().manual_seed(seed))
         return [tr.process(img) for img in imgs], tr
 
@@ -170,3 +171,21 @@ def test_state_from_numpy_matches_init():
         assert torch.equal(getattr(t, f), getattr(ref, f)), f
     assert [p.shape for p in t.pyramid] == [p.shape for p in ref.pyramid]
     assert [g[0].shape for g in t.grads] == [p.shape for p in ref.pyramid]
+
+
+def test_runs_on_the_card_unless_asked_for_the_cpu():
+    from lmono_tpu_torch import default_device
+
+    cam = camera_from_config(TCAM)
+    if torch.cuda.is_available():
+        tr = FeatureTracker(cam, TCFG, CAM.height, CAM.width)
+        assert tr.device.type == "cuda" and tr.state.uv.is_cuda
+        assert default_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            FeatureTracker(cam, TCFG, CAM.height, CAM.width)
+        with pytest.raises(RuntimeError):
+            default_device()
+    tr = FeatureTracker(cam, TCFG, CAM.height, CAM.width, device="cpu")
+    assert tr.device == torch.device("cpu") and not tr.state.uv.is_cuda
+    assert default_device("cpu") == torch.device("cpu")
