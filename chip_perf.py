@@ -21,7 +21,13 @@ both on the same card one after the other, in turns (old, new, new, old).
 3. profile: the kitti odometry (20 frames after 40) and tracker-kitti (10
    frames after 50): device ms per frame, busy share of the wall time, the
    hand-written kernels' ms and share, kernels per frame; wall ms per frame
-   from a window of the same length with the profiler off.
+   from a window of the same length with the profiler off;
+4. profile-pipeline-kitti: the fused pipeline at KITTI scale (10 frames
+   after 50): device ms per frame, busy share, kernels per frame, K1's and
+   K2's shares and, as profiler ranges, the window solve, the
+   marginalization and the tracker's RANSAC (device ms and share, host ms
+   and share of the profiled window's wall time), and LM attempts and
+   read-backs per frame.
 
 Prints one line per measurement and the card's name and power limit.
 Needs a CUDA device; imports nothing of JAX.
@@ -68,8 +74,12 @@ def _batched_ms(fn) -> float:
 
 
 def _device_events(prof) -> list:
+    """The kernels and copies of a profiler window (not the device-side
+    marks of the pipeline window's ranges)."""
+    labels = {label for _, _, label in PIPE_RANGES}
     return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name not in labels]
 
 
 def _device_per_call(fn) -> dict:
@@ -221,6 +231,94 @@ def profile_windows(dev) -> None:
         **_window(prof, 10, wall, "lk"))
 
 
+# the stages of the fused step that the pipeline window times as ranges:
+# (module, function, range name)
+PIPE_RANGES = [("lmono_tpu_torch.estimator.estimator", "solve_window", "solve_window"),
+               ("lmono_tpu_torch.estimator.estimator", "marginalize_oldest",
+                "marginalize_oldest"),
+               ("lmono_tpu_torch.estimator.tracker", "ransac_fundamental",
+                "tracker_ransac")]
+
+
+def _in_range(mod_name: str, fn_name: str, label: str) -> None:
+    """Run `mod_name.fn_name` inside a profiler range named `label`."""
+    import importlib
+
+    from torch.profiler import record_function
+
+    mod = importlib.import_module(mod_name)
+    fn = getattr(mod, fn_name)
+
+    def ranged(*args, **kwargs):
+        with record_function(label):
+            return fn(*args, **kwargs)
+
+    setattr(mod, fn_name, ranged)
+
+
+def profile_pipeline(dev) -> None:
+    """pipeline-kitti: `FusedPipeline.process_chunk` at kitti_scale_config,
+    40 frames of warm-up, 10 timed, 10 profiled: device ms and busy share
+    per frame, kernels per frame, K1's and K2's device share and launches,
+    the device and host ms of the window solve (its jacfwd included),
+    the marginalization and the tracker's RANSAC, LM attempts and
+    read-backs per frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lmono_tpu_torch.camera import camera_from_config
+    from lmono_tpu_torch.config import kitti_scale_config
+    from lmono_tpu_torch.fused import FusedPipeline
+    from lmono_tpu_torch.io import synthetic as syn
+    from lmono_tpu_torch.utils.lie import Pose
+
+    for r in PIPE_RANGES:
+        _in_range(*r)
+    cfg = kitti_scale_config()
+    scene = syn.make_city_scene(device=dev)
+    traj = syn.circuit_trajectory(120, device=dev)
+    T_CL = syn.synthetic_T_CL(device=dev)
+    g = torch.Generator(device=dev).manual_seed(600)
+    frames = []
+    for i in range(60):
+        pose = Pose(traj.t[i], traj.q[i])
+        fr = syn.simulate_lidar(scene, pose, cfg.lidar, 0.01, generator=g)
+        fr = {k: fr[k] for k in ("points", "ranges", "valid")}
+        fr["image"] = syn.render_camera(scene, pose.compose(T_CL.inverse()),
+                                        cfg.camera)
+        frames.append(fr)
+    chunks = [{k: torch.stack([f[k] for f in frames[c:c + 10]]) for k in frames[0]}
+              for c in range(0, 60, 10)]
+    fp = FusedPipeline(cfg, camera_from_config(cfg.camera), T_CL, device=dev)
+    for c in chunks[:4]:
+        fp.process_chunk(c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fp.process_chunk(chunks[4])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fp.process_chunk(chunks[5])
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3 / 10
+    fields = {**_window(prof, 10, wall, "knn"), **_window(prof, 10, wall, "lk")}
+    total = sum(e.time_range.elapsed_us() for e in _device_events(prof))
+    for _, _, label in PIPE_RANGES:
+        ev = [e for e in prof.events() if e.name == label
+              and e.device_type == torch.autograd.DeviceType.CPU]
+        d_us = sum(e.device_time_total for e in ev)
+        h_ms = sum(e.cpu_time_total for e in ev) / 1e3 / 10
+        fields[f"{label}_device_ms_per_frame"] = f"{d_us / 1e3 / 10:.4f}"
+        fields[f"{label}_share_of_device"] = f"{d_us / total:.4f}"
+        fields[f"{label}_host_ms_per_frame"] = f"{h_ms:.3f}"
+        fields[f"{label}_share_of_profiled_wall"] = f"{h_ms / prof_wall:.4f}"
+    say("profile-pipeline-kitti", frames=10, wall_ms_per_frame=f"{wall:.3f}",
+        profiled_wall_ms_per_frame=f"{prof_wall:.3f}",
+        lm_attempts_per_frame=f"{float(out['lm_attempts'].float().mean()):.2f}",
+        readbacks_per_frame=f"{float(out['readbacks'].float().mean()):.2f}",
+        **fields)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
@@ -240,6 +338,7 @@ def main() -> None:
     knn_times(dev)
     lk_times(dev)
     profile_windows(dev)
+    profile_pipeline(dev)
 
 
 if __name__ == "__main__":

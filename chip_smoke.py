@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's two slices through their entry points,
-`LidarOdometry.process_chunk` and `FeatureTracker.process`, and checks every
-kernel on their paths against its plain PyTorch version:
+Drives the port's three slices through their entry points,
+`LidarOdometry.process_chunk`, `FeatureTracker.process` and
+`FusedPipeline.process_chunk`, and checks every kernel on their paths
+against its plain PyTorch version:
 
 1. device: the card, its power limit and the toolchain;
 2. build: compiles the CUDA kernels (`lmono_tpu_torch/csrc/knn.cu`, K1, and
@@ -36,10 +37,22 @@ kernel on their paths against its plain PyTorch version:
    and no plain LK call, median frame-to-frame track error
    against the simulator's geometry under 0.6 px, mean tracks carried at
    least half the slots, frames/s and peak memory, and (synthetic) the
-   first frames again on the CPU.
+   first frames again on the CPU;
+7. pipeline-synthetic / pipeline-kitti: the fused step (odometry → KLT →
+   sliding-window fusion) at `synthetic_config()` and
+   `kitti_scale_config()`, 120 frames staged on the card (sweeps with
+   0.01 m noise and renders through the synthetic rig) in chunks of 20, the
+   estimator seeded with the rig's extrinsic, as `bench.py` runs the
+   pipeline row: fused ATE gate 0.5 m beside the raw laser ATE, fps,
+   keyframes, solved frames, LM attempts per solve, host read-backs per
+   frame, the extrinsic's error, peak memory; exactly 2 K1 launches per
+   outer iteration and 1 K2 launch per frame, no plain call; (synthetic)
+   each stage of the first 16 frames stepped again on the CPU from the
+   card's state before it, with the same noise (the estimator on the
+   card's tracks and laser pose).
 
-Prints one JSON line of kernel results (time, launches and launches per
-frame on the main path, bound, plain and library times), the `nvidia-smi`
+Prints one JSON line of kernel results (time, launches on pipeline-kitti and
+launches per frame on every path, bound, plain and library times), the `nvidia-smi`
 name and power limit, and last `{"ok": true, "device": {...}}`.  Any failed check raises,
 so the exit code is non-zero and the last line is not printed.  Needs a
 CUDA device; imports nothing of JAX.
@@ -111,6 +124,8 @@ TRACK_WARMUP = 10            # frames before the tracker's timed window
 # CUDA vs CPU tracker on the first frames: same noise, sums in another order
 TRACK_CPU_ALIVE_AGREE = 0.97
 TRACK_CPU_ATOL_PX = 1e-2
+# pipeline frames stepped again on the CPU: with window 10, 6 of them solve
+PIPE_CPU_FRAMES = 16
 
 
 def say(phase: str, **kv) -> None:
@@ -474,18 +489,27 @@ def lk_phase(dev) -> dict:
     return {"max_abs_err": max_err, **fused[FB_CASES[0][:2]], "fused": fused}
 
 
-def _stage(cfg, dev, seed: int):
+def _stage(cfg, dev, seed: int, camera=None):
+    """Chunks of CHUNK simulated sweeps along the circuit (and, given a
+    camera config, the frame's render through the synthetic rig, as
+    `bench.py` stages the pipeline's frames), and the trajectory."""
     from lmono_tpu_torch.io import synthetic as syn
     from lmono_tpu_torch.utils.lie import Pose
 
     scene = syn.make_city_scene(device=dev)
     traj = syn.circuit_trajectory(N_FRAMES, device=dev)
+    T_LC = syn.synthetic_T_CL(device=dev).inverse()
     g = torch.Generator(device=dev).manual_seed(seed)
-    frames = [syn.simulate_lidar(scene, Pose(traj.t[i], traj.q[i]), cfg,
-                                 NOISE_STD_M, generator=g)
-              for i in range(N_FRAMES)]
+    frames = []
+    for i in range(N_FRAMES):
+        pose = Pose(traj.t[i], traj.q[i])
+        fr = syn.simulate_lidar(scene, pose, cfg, NOISE_STD_M, generator=g)
+        fr = {k: fr[k] for k in ("points", "ranges", "valid")}
+        if camera is not None:
+            fr["image"] = syn.render_camera(scene, pose.compose(T_LC), camera)
+        frames.append(fr)
     chunks = [{k: torch.stack([f[k] for f in frames[c:c + CHUNK]])
-               for k in ("points", "ranges", "valid")}
+               for k in frames[0]}
               for c in range(0, N_FRAMES, CHUNK)]
     torch.cuda.synchronize()
     return chunks, traj
@@ -653,7 +677,176 @@ def tracker_phase(name: str, cfg, dev, seed: int, compare_cpu: bool) -> dict:
             "per_frame": launches / N_FRAMES}
 
 
+def _extrinsic_error(ex_t, ex_q, T_CL) -> tuple[float, float]:
+    """Translation (m) and rotation (degrees) of an extrinsic estimate
+    against the rig's."""
+    from lmono_tpu_torch.utils.lie import boxminus
+
+    dt = float(torch.linalg.vector_norm(ex_t - T_CL.t))
+    dr = float(torch.linalg.vector_norm(boxminus(T_CL.q, ex_q)))
+    return dt, dr * 180.0 / 3.141592653589793
+
+
+def _to_cpu(tree):
+    """A state or frame (tensors in nested NamedTuples, tuples, lists and
+    dicts) on the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        leaves = [_to_cpu(x) for x in tree]
+        return type(tree)(*leaves) if hasattr(tree, "_fields") else type(tree)(leaves)
+    return tree
+
+
+def _pipeline_vs_cpu(name: str, cfg, cam, T_CL, chunk: dict, noise) -> None:
+    """The first PIPE_CPU_FRAMES frames stepped on the card by
+    `FusedPipeline.process`, and each stage of each frame stepped again on
+    the CPU from the card's state before it, with the same noise: the
+    odometry's pose within CPU_ATOL_T / CPU_ATOL_Q; the tracker's slots as
+    `tracker_phase` holds them (alive on TRACK_CPU_ALIVE_AGREE of them, the
+    same feature within TRACK_CPU_ATOL_PX); the fusion estimator, fed the
+    card's tracks and laser pose, its fused pose within CPU_ATOL_T /
+    CPU_ATOL_Q, with the same keyframe decisions (LM attempts that differ
+    are counted).  Each stage starts from the card's state because the two
+    paths part upstream of the estimator: the odometry's plane fits are
+    ill-conditioned, and a tracker slot that flips re-orders re-detection,
+    so a window fed the CPU's own tracks solves to another pose by
+    millimetres."""
+    from lmono_tpu_torch.estimator.estimator import fusion_step
+    from lmono_tpu_torch.estimator.tracker import TrackOutput, tracker_step
+    from lmono_tpu_torch.fused import FusedPipeline
+    from lmono_tpu_torch.lidar.odometry import odometry_step
+    from lmono_tpu_torch.utils.lie import Pose
+
+    card = FusedPipeline(cfg, cam, T_CL, device=T_CL.t.device)
+    worst = dict.fromkeys(("laser_dt_m", "laser_dq", "uv_px", "fused_dt_m",
+                           "fused_dq"), 0.0)
+    alive_agree = 1.0
+    solved = attempts_differ = kf_differ = 0
+    for i in range(PIPE_CPU_FRAMES):
+        frame = {k: v[i] for k, v in chunk.items()}
+        before = _to_cpu(card.state)
+        a = card.process(frame, (noise[i], None))
+        trk = _to_cpu(card.state.trk)
+        frame = _to_cpu(frame)
+        _, lo = odometry_step(before.odo, {k: frame[k] for k in ("points", "ranges", "valid")},
+                              cfg.lidar, i)
+        b_trk, _ = tracker_step(before.trk, frame["image"], cam, cfg.tracker,
+                                noise[i].cpu(), i)
+        track = TrackOutput(ids=trk.ids, uv=trk.uv, norm=trk.norm,
+                            velocity=torch.zeros_like(trk.norm),
+                            track_cnt=trk.track_cnt, alive=trk.alive)
+        _, b = fusion_step(before.est, track,
+                           Pose(a["laser_t"].cpu(), a["laser_q"].cpu()),
+                           cfg.estimator, min(i, cfg.estimator.window_size))
+        same = trk.alive & b_trk.alive & (trk.ids == b_trk.ids)
+        uv = float((trk.uv - b_trk.uv).abs()[same].max()) if same.any() else 0.0
+        alive_agree = min(alive_agree, float((trk.alive == b_trk.alive).float().mean()))
+        for key, d in (("laser_dt_m", a["laser_t"].cpu() - lo["pose"].t),
+                       ("laser_dq", a["laser_q"].cpu() - lo["pose"].q),
+                       ("fused_dt_m", a["pose_t"].cpu() - b.pose.t),
+                       ("fused_dq", a["pose_q"].cpu() - b.pose.q)):
+            worst[key] = max(worst[key], d.abs().max().item())
+        worst["uv_px"] = max(worst["uv_px"], uv)
+        solved += a["lm_attempts"] > 0
+        attempts_differ += a["lm_attempts"] != b.lm_attempts
+        kf_differ += bool(a["is_keyframe"]) != bool(b.is_keyframe)
+    say(name + "-vs-cpu", frames=PIPE_CPU_FRAMES, solved=solved,
+        lm_attempts_differ=attempts_differ, keyframes_differ=kf_differ,
+        min_alive_agree=f"{alive_agree:.4f}", **worst)
+    if not (worst["laser_dt_m"] < CPU_ATOL_T and worst["laser_dq"] < CPU_ATOL_Q):
+        raise AssertionError(f"{name}: CUDA and CPU odometry differ ({worst})")
+    if alive_agree < TRACK_CPU_ALIVE_AGREE or not worst["uv_px"] < TRACK_CPU_ATOL_PX:
+        raise AssertionError(f"{name}: CUDA and CPU trackers differ "
+                             f"(alive {alive_agree}, uv {worst['uv_px']} px)")
+    if not (worst["fused_dt_m"] < CPU_ATOL_T and worst["fused_dq"] < CPU_ATOL_Q):
+        raise AssertionError(f"{name}: CUDA and CPU fused poses differ ({worst})")
+    if kf_differ:
+        raise AssertionError(f"{name}: {kf_differ} keyframe decisions differ")
+    if solved < 5:
+        raise AssertionError(f"{name}: only {solved} of the CPU-checked frames solved")
+
+
+def pipeline_phase(name: str, cfg, dev, seed: int, compare_cpu: bool) -> dict:
+    """`FusedPipeline.process_chunk` (odometry → tracker → window fusion) on
+    120 frames staged on the card, the estimator seeded with the rig's
+    extrinsic, as `bench.py` runs the JAX package's pipeline row."""
+    from lmono_tpu_torch.camera import camera_from_config
+    from lmono_tpu_torch.eval.ate import ate_rmse
+    from lmono_tpu_torch.fused import FusedPipeline
+    from lmono_tpu_torch.io.synthetic import synthetic_T_CL
+    from lmono_tpu_torch.ops import knn as knn_mod
+    from lmono_tpu_torch.ops import lk as lk_mod
+    from lmono_tpu_torch.ops.cuda import knn as knn_cuda_mod
+    from lmono_tpu_torch.ops.cuda import lk as lk_cuda_mod
+    from lmono_tpu_torch.utils.lie import Pose
+
+    chunks, traj = _stage(cfg.lidar, dev, seed, camera=cfg.camera)
+    T_CL = synthetic_T_CL(device=dev)
+    cam = camera_from_config(cfg.camera)
+    torch.cuda.reset_peak_memory_stats()
+    fp = FusedPipeline(cfg, cam, T_CL, device=dev)
+    # the first chunk's noise drawn here, to run its frames again on the CPU
+    draws = [fp.noise() for _ in range(CHUNK)]
+    noise0 = torch.stack([d[0] for d in draws])
+    knn_cuda_mod.knn_kernel_launches = lk_cuda_mod.lk_kernel_launches = 0
+    knn_mod.knn_plain_calls = lk_mod.lk_plain_calls = 0
+    outs = [fp.process_chunk(chunks[0], (noise0, None))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in chunks[WARMUP_CHUNKS:]:
+        outs.append(fp.process_chunk(c))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    knn_launches = knn_cuda_mod.knn_kernel_launches
+    lk_launches = lk_cuda_mod.lk_kernel_launches
+    plain = (knn_mod.knn_plain_calls, lk_mod.lk_plain_calls)
+    peak = torch.cuda.max_memory_allocated()
+
+    res = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    est, laser = (Pose(res[p + "_t"], res[p + "_q"]) for p in ("pose", "laser"))
+    if est.t.shape != (N_FRAMES, 3) or est.q.shape != (N_FRAMES, 4):
+        raise AssertionError(f"{name}: pose shapes {est.t.shape}, {est.q.shape}")
+    if not (torch.isfinite(est.t).all() and torch.isfinite(est.q).all()):
+        raise AssertionError(f"{name}: non-finite poses")
+    ate, ate_laser = ate_rmse(est, traj), ate_rmse(laser, traj)
+    attempts, readbacks = res["lm_attempts"], res["readbacks"]
+    solved = int((attempts > 0).sum())
+    full = torch.arange(N_FRAMES) >= cfg.estimator.window_size
+    keyframes = int((res["is_keyframe"].cpu() & full).sum())
+    ex_dt, ex_dr = _extrinsic_error(res["ex_t"][-1], res["ex_q"][-1], T_CL)
+    fps = (len(chunks) - WARMUP_CHUNKS) * CHUNK / dt
+    say(name, frames=N_FRAMES, fps=f"{fps:.3f}", ate_m=f"{ate:.6f}",
+        laser_ate_m=f"{ate_laser:.6f}", keyframes=keyframes,
+        non_keyframes=int(full.sum()) - keyframes, solved=solved,
+        lm_attempts_per_solve=f"{int(attempts.sum()) / max(solved, 1):.3f}",
+        readbacks_per_frame=f"{int(readbacks.sum()) / N_FRAMES:.3f}",
+        extrinsic_err_m=f"{ex_dt:.6f}", extrinsic_err_deg=f"{ex_dr:.6f}",
+        initialized=bool(res["initialized"][-1]),
+        knn_launches=knn_launches, lk_launches=lk_launches,
+        knn_plain_calls=plain[0], lk_plain_calls=plain[1], peak_mem_bytes=peak)
+    if not ate < ATE_GATE_M:
+        raise AssertionError(f"{name}: ATE {ate} m fails the {ATE_GATE_M} m gate")
+    want = 2 * ((cfg.lidar.scan_to_map_iters + 1) // 2) * N_FRAMES
+    if knn_launches != want or lk_launches != N_FRAMES:
+        raise AssertionError(f"{name}: {knn_launches} K1 and {lk_launches} K2 "
+                             f"launches, expected {want} and {N_FRAMES}")
+    if plain != (0, 0):
+        raise AssertionError(f"{name}: {plain} plain KNN and LK calls on CUDA")
+    if solved < N_FRAMES - cfg.estimator.window_size:
+        raise AssertionError(f"{name}: only {solved} frames solved")
+
+    if compare_cpu:
+        _pipeline_vs_cpu(name, cfg, cam, T_CL, chunks[0], noise0)
+    return {"fps": fps, "ate": ate, "knn_per_frame": knn_launches / N_FRAMES,
+            "lk_per_frame": lk_launches / N_FRAMES, "knn_launches": knn_launches,
+            "lk_launches": lk_launches}
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     name = device_phase()
     from lmono_tpu_torch.config import kitti_scale_config, synthetic_config
 
@@ -669,13 +862,20 @@ def main() -> None:
                                       dev, seed=300, compare_cpu=True)
     tracker_kitti = tracker_phase("tracker-kitti", kitti_scale_config(), dev,
                                   seed=400, compare_cpu=False)
+    pipe_synthetic = pipeline_phase("pipeline-synthetic", synthetic_config(),
+                                    dev, seed=500, compare_cpu=True)
+    pipe_kitti = pipeline_phase("pipeline-kitti", kitti_scale_config(), dev,
+                                seed=600, compare_cpu=False)
+    say("time", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [{
         "name": "knn", "route": "cuda",
         "source": "lmono_tpu_torch/csrc/knn.cu",
         "replaces": "lmono_tpu/ops/pallas/knn.py:90",
-        "launches": kitti["launches"],
+        "launches": pipe_kitti["knn_launches"],
         "launches_per_frame": {"kitti": kitti["per_frame"],
-                               "synthetic": synthetic["per_frame"]},
+                               "synthetic": synthetic["per_frame"],
+                               "pipeline-kitti": pipe_kitti["knn_per_frame"],
+                               "pipeline-synthetic": pipe_synthetic["knn_per_frame"]},
         "max_abs_err": knn["max_abs_err"],
         "ms": knn["ms"], "plain_ms": knn["plain_ms"],
         "bound_ms": knn["bound_ms"], "bound_by": knn["bound_by"],
@@ -683,9 +883,11 @@ def main() -> None:
         "name": "lk", "route": "cuda",
         "source": "lmono_tpu_torch/csrc/lk.cu",
         "replaces": "lmono_tpu/ops/pallas/lk.py:109",
-        "launches": tracker_kitti["launches"],
+        "launches": pipe_kitti["lk_launches"],
         "launches_per_frame": {"kitti": tracker_kitti["per_frame"],
-                               "synthetic": tracker_synthetic["per_frame"]},
+                               "synthetic": tracker_synthetic["per_frame"],
+                               "pipeline-kitti": pipe_kitti["lk_per_frame"],
+                               "pipeline-synthetic": pipe_synthetic["lk_per_frame"]},
         "max_abs_err": lk["max_abs_err"],
         "ms": lk["ms"], "plain_ms": lk["plain_ms"],
         "bound_ms": lk["bound_ms"], "bound_by": lk["bound_by"],

@@ -2,7 +2,9 @@
 
 This system has no weights; what a run carries is the odometry state
 (poses, the two voxel banks and the frame counter), the tracker state
-(feature slots and the previous frame's pyramid) and the configuration.
+(feature slots and the previous frame's pyramid), the estimator state (the
+window, its feature table and prior, the hand-eye ring and the previous
+frame's tracks and laser pose), and the configuration.
 Both arrive here as plain data (numpy arrays, JSON), so this module needs
 neither JAX nor `lmono_tpu`.
 """
@@ -13,7 +15,11 @@ import numpy as np
 import torch
 
 from lmono_tpu_torch.config import SystemConfig
+from lmono_tpu_torch.estimator.estimator import EstimatorState
+from lmono_tpu_torch.estimator.initializer import HandEyeState
 from lmono_tpu_torch.estimator.tracker import TrackerState
+from lmono_tpu_torch.estimator.window import FeatureTable, MargPrior, WindowState
+from lmono_tpu_torch.fused import FusedState
 from lmono_tpu_torch.lidar.odometry import OdometryState
 from lmono_tpu_torch.ops.voxelmap import PointBank
 from lmono_tpu_torch.utils.lie import Pose
@@ -71,6 +77,58 @@ def tracker_state_from_numpy(tree, device=None) -> tuple[TrackerState, int]:
         frame=torch.tensor(frame, dtype=torch.int32, device=device),
     )
     return state, frame
+
+
+def _fields(cls, tree, device, dtypes: dict):
+    """cls(**{field: tensor}) from the same-named fields of `tree`, each
+    as dtypes[field] (float32 by default)."""
+    return cls(**{f: _tensor(getattr(tree, f), dtypes.get(f, torch.float32),
+                             device) for f in cls._fields})
+
+
+def window_state_from_numpy(w, device=None) -> WindowState:
+    """A `lmono_tpu.estimator.window.WindowState` pulled to numpy → the
+    port's on `device`."""
+    i32, b = torch.int32, torch.bool
+    return WindowState(
+        **{f: _tensor(getattr(w, f), torch.float32, device)
+           for f in ("t", "q", "lt", "lq", "ex_t", "ex_q", "ex_ref_t", "ex_ref_q")},
+        feats=_fields(FeatureTable, w.feats, device, {
+            "ids": i32, "anchor": i32, "obs_mask": b, "depth_ok": b, "alive": b}),
+        prior=_fields(MargPrior, w.prior, device, {"valid": b}),
+        count=_tensor(w.count, i32, device),
+        initialized=_tensor(w.initialized, b, device),
+        ex_refines=_tensor(w.ex_refines, i32, device))
+
+
+def estimator_state_from_numpy(tree, device=None) -> tuple[EstimatorState, int]:
+    """A `lmono_tpu.estimator.estimator.EstimatorState` pulled to numpy →
+    (the port's state on `device`, the host copy of its window count).
+    `tree` needs only the reference's field names."""
+    i32, b = torch.int32, torch.bool
+    window = window_state_from_numpy(tree.window, device)
+    handeye = _fields(HandEyeState, tree.handeye, device, {
+        "mask": b, "n": i32, "converged": b, "stable": i32})
+    state = EstimatorState(
+        window=window, handeye=handeye,
+        prev_norm=_tensor(tree.prev_norm, torch.float32, device),
+        prev_ids=_tensor(tree.prev_ids, i32, device),
+        prev_alive=_tensor(tree.prev_alive, b, device),
+        prev_laser_t=_tensor(tree.prev_laser_t, torch.float32, device),
+        prev_laser_q=_tensor(tree.prev_laser_q, torch.float32, device))
+    return state, int(np.asarray(tree.window.count))
+
+
+def fused_state_from_numpy(tree, device=None) -> tuple[FusedState, int]:
+    """A `lmono_tpu.fused.FusedState` pulled to numpy → (the port's state on
+    `device`, its host frame number).  The reference's PRNG key is not
+    carried: the port's noise comes from `FusedPipeline.generator`."""
+    odo, frame = odometry_state_from_numpy(tree.odo, device)
+    trk, trk_frame = tracker_state_from_numpy(tree.trk, device)
+    est, _ = estimator_state_from_numpy(tree.est, device)
+    if trk_frame != frame:
+        raise ValueError(f"odometry frame {frame} != tracker frame {trk_frame}")
+    return FusedState(odo, trk, est), frame
 
 
 def config_from_json(s: str) -> SystemConfig:

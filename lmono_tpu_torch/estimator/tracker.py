@@ -25,7 +25,8 @@ from lmono_tpu_torch.config import TrackerConfig
 from lmono_tpu_torch.ops.corners import detect_grid
 from lmono_tpu_torch.ops.image import build_pyramid, scharr_gradients
 from lmono_tpu_torch.ops.lk import track_fb
-from lmono_tpu_torch.ops.ransac import masked_categorical, ransac_fundamental
+from lmono_tpu_torch.ops.ransac import (gumbel_noise, masked_categorical,
+                                        ransac_fundamental)
 
 
 class TrackerState(NamedTuple):
@@ -154,10 +155,8 @@ class FeatureTracker:
 
     def gumbel(self) -> torch.Tensor:
         """Standard Gumbel noise for one frame's RANSAC draws."""
-        shape = (self.cfg.f_ransac_iters, 8, self.cfg.max_features)
-        u = torch.rand(shape, generator=self.generator, device=self.device)
-        tiny = torch.finfo(torch.float32).tiny
-        return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+        return gumbel_noise((self.cfg.f_ransac_iters, 8, self.cfg.max_features),
+                            self.generator, self.device)
 
     def process(self, image, gumbel: torch.Tensor | None = None) -> TrackOutput:
         """image: (H, W) grayscale in [0,1], a numpy array or a tensor.

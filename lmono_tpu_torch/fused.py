@@ -1,0 +1,164 @@
+"""Fused full-pipeline step: LiDAR odometry + KLT tracking + window fusion.
+
+Port of `lmono_tpu/fused.py` (`fused_step`, `fused_chunk`,
+`FusedPipeline`).  The JAX package scans the composed step over a chunk
+of frames in one compiled program; here a chunk is a Python loop of
+per-frame steps on the device (the port's convention for `lax.scan`
+rollouts).  Each step runs K1 through `odometry_step` and K2 through
+`tracker_step`'s `track_fb`.
+
+The JAX state carries a PRNG key split three ways per frame; here
+`FusedPipeline` holds a `torch.Generator` and hands each step its noise:
+the tracker's RANSAC Gumbel noise and, when estimate_laser == 2, the
+relative-pose RANSAC's.  The host keeps the frame number; the window count
+is min(frame, W).  `system_chunk` (dense map and loop lanes) comes with
+the system slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from lmono_tpu_torch import default_device
+from lmono_tpu_torch.camera.base import CameraModel
+from lmono_tpu_torch.config import SystemConfig
+from lmono_tpu_torch.estimator.estimator import EstimatorState, fusion_step
+from lmono_tpu_torch.estimator.initializer import RP_ITERS
+from lmono_tpu_torch.estimator.tracker import TrackerState, tracker_step
+from lmono_tpu_torch.lidar.odometry import OdometryState, odometry_step
+from lmono_tpu_torch.ops.ransac import gumbel_noise
+from lmono_tpu_torch.utils.lie import Pose
+
+_SCAN = ("points", "ranges", "valid")
+
+
+class FusedState(NamedTuple):
+    odo: OdometryState
+    trk: TrackerState
+    est: EstimatorState
+
+    @staticmethod
+    def init(cfg: SystemConfig, T_CL: Pose | None, device=None) -> "FusedState":
+        return FusedState(
+            odo=OdometryState.init(cfg.lidar, device),
+            trk=TrackerState.init(cfg.tracker, cfg.camera.height,
+                                  cfg.camera.width, device),
+            est=EstimatorState.init(cfg.estimator, T_CL,
+                                    cfg.tracker.max_features, device),
+        )
+
+
+def fused_step(state: FusedState, frame: dict, cam: CameraModel,
+               cfg: SystemConfig, gumbel: torch.Tensor, n: int,
+               rp_gumbel: torch.Tensor | None = None) -> tuple[FusedState, dict]:
+    """One frame through odometry → tracker → fusion.
+
+    frame: {points (R,W,3), ranges (R,W), valid (R,W), image (H,W)}.
+    gumbel: the tracker's RANSAC noise (f_ransac_iters, 8, max_features);
+    rp_gumbel: the relative-pose noise (96, 8, max_features), used when
+    estimate_laser == 2.  n: the host frame number (the odometry's and
+    tracker's `frame`).  The result holds device tensors and two host
+    counts, `lm_attempts` and `readbacks`.
+    """
+    odo, lo = odometry_step(state.odo, {k: frame[k] for k in _SCAN},
+                            cfg.lidar, n)
+    trk, track = tracker_step(state.trk, frame["image"], cam, cfg.tracker,
+                              gumbel, n)
+    est, out = fusion_step(state.est, track, lo["pose"], cfg.estimator,
+                           min(n, cfg.estimator.window_size), rp_gumbel)
+    result = {
+        "pose_t": out.pose.t, "pose_q": out.pose.q,
+        "cam_t": out.cam_pose.t, "cam_q": out.cam_pose.q,
+        "ex_t": out.extrinsic.t, "ex_q": out.extrinsic.q,
+        "is_keyframe": out.is_keyframe,
+        "initialized": out.initialized,
+        "n_tracked": out.n_tracked,
+        "laser_t": lo["pose"].t, "laser_q": lo["pose"].q,
+        "solve_cost": out.solve_cost,
+        "lm_attempts": out.lm_attempts,
+        "readbacks": out.readbacks,
+    }
+    return FusedState(odo, trk, est), result
+
+
+def fused_chunk(state: FusedState, frames: dict, cam: CameraModel,
+                cfg: SystemConfig, gumbels: torch.Tensor, n: int,
+                rp_gumbels: torch.Tensor | None = None
+                ) -> tuple[FusedState, dict]:
+    """Run `fused_step` over frames with a leading chunk axis; `gumbels`
+    (and `rp_gumbels`) carry one frame's noise per row, `n` is the host
+    frame number of the first.  Returns (state, stacked per-frame results;
+    the host counts become CPU int tensors)."""
+    outs = []
+    for i in range(frames["points"].shape[0]):
+        state, out = fused_step(
+            state, {k: v[i] for k, v in frames.items()}, cam, cfg, gumbels[i],
+            n + i, None if rp_gumbels is None else rp_gumbels[i])
+        outs.append(out)
+    return state, {k: (torch.tensor([o[k] for o in outs])
+                       if isinstance(outs[0][k], int)
+                       else torch.stack([o[k] for o in outs]))
+                   for k in outs[0]}
+
+
+class FusedPipeline:
+    """Host-side runner of the fused step on one device, the CUDA card
+    unless another is named (`default_device`).
+
+    `process` runs one frame, `process_chunk` a stacked (F, ...) batch;
+    both draw each frame's noise from `generator` (seed 7 on `device` when
+    none is given) in the same order, so they give the same results.
+    `frame` is the host frame counter.
+    """
+
+    def __init__(self, cfg: SystemConfig, cam: CameraModel,
+                 T_CL: Pose | None = None, device=None,
+                 generator: torch.Generator | None = None):
+        self.cfg = cfg
+        self.cam = cam
+        self.device = default_device(device)
+        self.state = FusedState.init(cfg, T_CL, self.device)
+        self.frame = 0
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(7)
+        self.generator = generator
+
+    def noise(self) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """One frame's (tracker, relative-pose) Gumbel noise."""
+        n = self.cfg.tracker.max_features
+        g = gumbel_noise((self.cfg.tracker.f_ransac_iters, 8, n),
+                         self.generator, self.device)
+        rp = (gumbel_noise((RP_ITERS, 8, n), self.generator, self.device)
+              if self.cfg.estimator.estimate_laser == 2 else None)
+        return g, rp
+
+    def _to_device(self, frames: dict) -> dict:
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in frames.items()}
+
+    def process_chunk(self, frames: dict, noise: tuple | None = None) -> dict:
+        """frames: stacked frames with leading (chunk,) axis.  noise:
+        optional explicit (tracker, relative-pose or None) noise stacked
+        per frame, as `noise()` draws it."""
+        frames = self._to_device(frames)
+        if noise is None:
+            draws = [self.noise() for _ in range(frames["points"].shape[0])]
+            g = torch.stack([d[0] for d in draws])
+            rp = (torch.stack([d[1] for d in draws])
+                  if self.cfg.estimator.estimate_laser == 2 else None)
+        else:
+            g, rp = noise
+        self.state, outs = fused_chunk(self.state, frames, self.cam, self.cfg,
+                                       g, self.frame, rp)
+        self.frame += frames["points"].shape[0]
+        return outs
+
+    def process(self, frame: dict, noise: tuple | None = None) -> dict:
+        """One frame; noise: optional explicit (tracker, relative-pose)."""
+        g, rp = self.noise() if noise is None else noise
+        self.state, out = fused_step(self.state, self._to_device(frame),
+                                     self.cam, self.cfg, g, self.frame, rp)
+        self.frame += 1
+        return out

@@ -16,6 +16,14 @@ from __future__ import annotations
 import torch
 
 
+def gumbel_noise(shape: tuple, generator: torch.Generator,
+                 device=None) -> torch.Tensor:
+    """Standard Gumbel noise of `shape` drawn from `generator`."""
+    u = torch.rand(shape, generator=generator, device=device)
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+
+
 def masked_categorical(mask: torch.Tensor, gumbel: torch.Tensor) -> torch.Tensor:
     """Indices drawn uniformly among `mask`'s set entries: mask (N,) bool,
     gumbel (..., N) standard Gumbel noise → (...) int64.

@@ -1,6 +1,7 @@
 """SO(3)/SE(3) operations on quaternions and rotation matrices, in PyTorch.
 
-Port of `lmono_tpu/utils/lie.py` (the part the LiDAR-odometry slice uses).
+Port of `lmono_tpu/utils/lie.py` (the part the odometry and estimator
+slices use).
 
 Conventions
 -----------
@@ -147,6 +148,19 @@ def so3_log_quat(q: torch.Tensor) -> torch.Tensor:
     return k * v
 
 
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix [v]_x (reference `SkewSymmetric`)."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    m = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
+    return m.reshape(v.shape[:-1] + (3, 3))
+
+
+def boxplus(q: torch.Tensor, dtheta: torch.Tensor) -> torch.Tensor:
+    """Right-perturbation retraction q ⊞ dθ = q ⊗ exp(dθ/2)."""
+    return quat_normalize(quat_mul(q, so3_exp_quat(dtheta)))
+
+
 def boxminus(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Local difference q2 ⊟ q1 = log(q1⁻¹ ⊗ q2)."""
     return so3_log_quat(quat_mul(quat_conj(q1), q2))
@@ -204,6 +218,15 @@ class Pose(NamedTuple):
     def between(self, other: "Pose") -> "Pose":
         """Relative transform self⁻¹ ∘ other."""
         return self.inverse().compose(other)
+
+    def retract(self, delta: torch.Tensor) -> "Pose":
+        """⊞ with 6-vector delta = (dp[3], dθ[3]): t+dp, q⊗exp(dθ/2)
+        (global translation increment, local rotation increment)."""
+        return Pose(self.t + delta[..., :3], boxplus(self.q, delta[..., 3:6]))
+
+    def local(self, other: "Pose") -> torch.Tensor:
+        """6-vector such that (approximately) self.retract(v) == other."""
+        return torch.cat([other.t - self.t, boxminus(self.q, other.q)], dim=-1)
 
 
 def pose_stack(poses: list) -> Pose:

@@ -59,7 +59,12 @@ def test_port_imports_no_jax():
         "lmono_tpu_torch.ops.ransac", "lmono_tpu_torch.ops.lk",
         "lmono_tpu_torch.ops.cuda.lk", "lmono_tpu_torch.ops.cuda._build",
         "lmono_tpu_torch.camera", "lmono_tpu_torch.estimator",
-        "lmono_tpu_torch.estimator.tracker",
+        "lmono_tpu_torch.estimator.tracker", "lmono_tpu_torch.estimator.window",
+        "lmono_tpu_torch.estimator.feature_manager",
+        "lmono_tpu_torch.estimator.factors", "lmono_tpu_torch.estimator.solver",
+        "lmono_tpu_torch.estimator.marginalization",
+        "lmono_tpu_torch.estimator.initializer",
+        "lmono_tpu_torch.estimator.estimator", "lmono_tpu_torch.fused",
     ]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"

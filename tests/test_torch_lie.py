@@ -65,3 +65,24 @@ def test_pose_ops_match():
     assert I.t.shape == (2, 3) and torch.equal(I.q[:, 0], torch.ones(2))
     S = tl.pose_stack([T, U])
     assert S.t.shape == (2, 16, 3)
+
+
+def test_estimator_lie_ops_match():
+    """skew, boxplus and Pose.retract / Pose.local, which the estimator
+    slice uses."""
+    rng = np.random.default_rng(2)
+    q, p = _quats(rng, 32), _quats(rng, 32)
+    t = rng.normal(size=(32, 3)).astype(np.float32)
+    d = 0.3 * rng.normal(size=(32, 6)).astype(np.float32)
+    d[:4, 3:] *= 1e-5                     # small-angle branches
+    tq, tp, tt, td = (torch.from_numpy(x) for x in (q, p, t, d))
+    _close(jl.skew(t), tl.skew(tt))
+    _close(jl.boxplus(q, d[:, 3:]), tl.boxplus(tq, td[:, 3:]))
+    J, T = jl.Pose(jnp.asarray(t), jnp.asarray(q)), tl.Pose(tt, tq)
+    K, U = jl.Pose(jnp.asarray(t + 1.0), jnp.asarray(p)), tl.Pose(tt + 1.0, tp)
+    r_j, r_t = J.retract(jnp.asarray(d)), T.retract(td)
+    _close(r_j.t, r_t.t)
+    _close(r_j.q, r_t.q)
+    _close(J.local(K), T.local(U))
+    # local undoes retract
+    np.testing.assert_allclose(T.local(r_t).numpy(), d, rtol=0, atol=1e-5)
