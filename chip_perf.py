@@ -2,6 +2,7 @@
 """Kernel times and profiler windows of the PyTorch/CUDA port on one GPU.
 
     python3 chip_perf.py [--root DIR]
+    python3 chip_perf.py --capture-loop FILE.npz
 
 Times the port's two hand-written kernels through the entry points that its
 slices call, and takes `torch.profiler` windows of the KITTI-scale
@@ -11,7 +12,8 @@ checkout instead of this one, for example an earlier commit unpacked with
 both on the same card one after the other, in turns (old, new, new, old).
 
 1. knn: `ops.knn.knn(q, t, mask, 5, center=c)` at the odometry's four
-   shapes, points at world scale, recentred on a sensor position;
+   shapes and the loop lane's two, points at world scale, recentred on a
+   sensor position;
 2. lk: `ops.lk.track_fb` at the tracker's two pyramids, 150 / 96 random
    slots on two consecutive rendered frames of the simulator;
    for each: ms per call batched (20 back-to-back calls between two CUDA
@@ -27,7 +29,21 @@ both on the same card one after the other, in turns (old, new, new, old).
    K2's shares and, as profiler ranges, the window solve, the
    marginalization and the tracker's RANSAC (device ms and share, host ms
    and share of the profiled window's wall time), and LM attempts and
-   read-backs per frame.
+   read-backs per frame;
+5. profile-system-kitti: `SlamSystem.process_chunk` at KITTI scale on the
+   circuit (260 frames of warm-up, the first lap and the start of the
+   revisit, then 10 frames profiled while closures fire, and the reap of
+   their detections): the same fields,
+   and as ranges the window solve, the loop lane's keyframe step, the
+   reaps (their pose-graph solves included) and the dense-map merge.
+
+`--capture-loop` instead runs `chip_smoke.py`'s system-kitti cell alone
+and saves what its graph lane consumed, for a CPU replay against the JAX
+package (`tests/kitti_loop_lane.py`): every processed keyframe's frame,
+time, uncorrected camera pose and detection (found, candidate, relative
+pose, refined), every frame's uncorrected laser pose, the corrected
+trajectory and its ATE, and the inputs and output of every loop-lane
+`register` call (K1 inside).
 
 Prints one line per measurement and the card's name and power limit.
 Needs a CUDA device; imports nothing of JAX.
@@ -45,7 +61,11 @@ import time
 
 import torch
 
-KNN_SHAPES = [(1536, 32768), (4096, 65536), (512, 8192), (1024, 16384)]
+# the odometry's four shapes and the loop lane's LiDAR refinement (a
+# keyframe's 512 edge / 1024 planar features against a candidate's banks of
+# the same sizes)
+KNN_SHAPES = [(1536, 32768), (4096, 65536), (512, 8192), (1024, 16384),
+              (512, 512), (1024, 1024)]
 KNN_K = 5
 # (config, slots) of the tracker's two pyramids
 LK_CASES = [("kitti", 150), ("synthetic", 96)]
@@ -76,7 +96,7 @@ def _batched_ms(fn) -> float:
 def _device_events(prof) -> list:
     """The kernels and copies of a profiler window (not the device-side
     marks of the pipeline window's ranges)."""
-    labels = {label for _, _, label in PIPE_RANGES}
+    labels = {label for _, _, label in PIPE_RANGES + SYSTEM_RANGES}
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.name not in labels]
@@ -240,20 +260,54 @@ PIPE_RANGES = [("lmono_tpu_torch.estimator.estimator", "solve_window", "solve_wi
                 "tracker_ransac")]
 
 
+# and those of the system step: a class's method is named Class.method
+SYSTEM_RANGES = [("lmono_tpu_torch.estimator.estimator", "solve_window", "solve_window"),
+                 ("lmono_tpu_torch.pipeline", "SlamSystem._loop_lane_chunk", "loop_lane"),
+                 ("lmono_tpu_torch.pipeline", "SlamSystem._reap_loops", "reap"),
+                 ("lmono_tpu_torch.fused", "colormap_update_hash", "map_merge")]
+
+
+_RANGED: set = set()
+
+
 def _in_range(mod_name: str, fn_name: str, label: str) -> None:
-    """Run `mod_name.fn_name` inside a profiler range named `label`."""
+    """Run `mod_name.fn_name` (or a class's method, `Class.method`) inside a
+    profiler range named `label`, once however often it is asked."""
     import importlib
 
     from torch.profiler import record_function
 
-    mod = importlib.import_module(mod_name)
-    fn = getattr(mod, fn_name)
+    if (mod_name, fn_name, label) in _RANGED:
+        return
+    _RANGED.add((mod_name, fn_name, label))
+    owner = importlib.import_module(mod_name)
+    *path, name = fn_name.split(".")
+    for part in path:
+        owner = getattr(owner, part)
+    fn = getattr(owner, name)
 
     def ranged(*args, **kwargs):
         with record_function(label):
             return fn(*args, **kwargs)
 
-    setattr(mod, fn_name, ranged)
+    setattr(owner, name, ranged)
+
+
+def _range_fields(prof, ranges, frames: int, prof_wall: float) -> dict:
+    """Device and host ms per frame of each range and their shares of the
+    window's device time and profiled wall time."""
+    total = sum(e.time_range.elapsed_us() for e in _device_events(prof))
+    fields = {}
+    for _, _, label in ranges:
+        ev = [e for e in prof.events() if e.name == label
+              and e.device_type == torch.autograd.DeviceType.CPU]
+        d_us = sum(e.device_time_total for e in ev)
+        h_ms = sum(e.cpu_time_total for e in ev) / 1e3 / frames
+        fields[f"{label}_device_ms_per_frame"] = f"{d_us / 1e3 / frames:.4f}"
+        fields[f"{label}_share_of_device"] = f"{d_us / total:.4f}"
+        fields[f"{label}_host_ms_per_frame"] = f"{h_ms:.3f}"
+        fields[f"{label}_share_of_profiled_wall"] = f"{h_ms / prof_wall:.4f}"
+    return fields
 
 
 def profile_pipeline(dev) -> None:
@@ -301,17 +355,8 @@ def profile_pipeline(dev) -> None:
         out = fp.process_chunk(chunks[5])
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3 / 10
-    fields = {**_window(prof, 10, wall, "knn"), **_window(prof, 10, wall, "lk")}
-    total = sum(e.time_range.elapsed_us() for e in _device_events(prof))
-    for _, _, label in PIPE_RANGES:
-        ev = [e for e in prof.events() if e.name == label
-              and e.device_type == torch.autograd.DeviceType.CPU]
-        d_us = sum(e.device_time_total for e in ev)
-        h_ms = sum(e.cpu_time_total for e in ev) / 1e3 / 10
-        fields[f"{label}_device_ms_per_frame"] = f"{d_us / 1e3 / 10:.4f}"
-        fields[f"{label}_share_of_device"] = f"{d_us / total:.4f}"
-        fields[f"{label}_host_ms_per_frame"] = f"{h_ms:.3f}"
-        fields[f"{label}_share_of_profiled_wall"] = f"{h_ms / prof_wall:.4f}"
+    fields = {**_window(prof, 10, wall, "knn"), **_window(prof, 10, wall, "lk"),
+              **_range_fields(prof, PIPE_RANGES, 10, prof_wall)}
     say("profile-pipeline-kitti", frames=10, wall_ms_per_frame=f"{wall:.3f}",
         profiled_wall_ms_per_frame=f"{prof_wall:.3f}",
         lm_attempts_per_frame=f"{float(out['lm_attempts'].float().mean()):.2f}",
@@ -319,10 +364,133 @@ def profile_pipeline(dev) -> None:
         **fields)
 
 
+def profile_system(dev) -> None:
+    """system-kitti: `SlamSystem.process_chunk` (loop and map on) at
+    kitti_scale_config, the estimator seeded with the rig's extrinsic, on
+    frames made chunk by chunk; 13 chunks of 20 as warm-up (a lap is 251
+    frames), then a chunk of 10 profiled while the revisit closes loops,
+    with the reap of its detections."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lmono_tpu_torch.config import kitti_scale_config
+    from lmono_tpu_torch.io import synthetic as syn
+    from lmono_tpu_torch.pipeline import SlamSystem
+    from lmono_tpu_torch.utils.lie import Pose
+
+    for r in SYSTEM_RANGES:
+        _in_range(*r)
+    warm, n, last_n = 13, 20, 10
+    T_CL = syn.synthetic_T_CL(device=dev)
+    cfg = kitti_scale_config().replace(
+        laser_to_camera=tuple(T_CL.to_mat4().reshape(-1).tolist()))
+    scene = syn.make_city_scene(device=dev)
+    traj = syn.circuit_trajectory(warm * n + last_n, device=dev)
+    g = torch.Generator(device=dev).manual_seed(800)
+
+    def chunk(c: int, size: int = n) -> dict:
+        frames = []
+        for i in range(c * n, c * n + size):
+            pose = Pose(traj.t[i], traj.q[i])
+            fr = syn.simulate_lidar(scene, pose, cfg.lidar, 0.01, generator=g)
+            fr = {k: fr[k] for k in ("points", "ranges", "valid")}
+            fr["image"] = syn.render_camera(scene, pose.compose(T_CL.inverse()),
+                                            cfg.camera)
+            frames.append(fr)
+        return {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
+
+    system = SlamSystem(cfg, device=dev)
+    for c in range(warm):
+        system.process_chunk(chunk(c), t0=c * n * 0.1)
+    last = chunk(warm, last_n)
+    torch.cuda.synchronize()
+    loops0, kf0, reads0 = system.n_loops, system.keyframes_processed, system.readbacks
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = system.process_chunk(last, t0=warm * n * 0.1)
+        system._reap_loops()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3 / last_n
+    fields = {**_window(prof, last_n, prof_wall, "knn"),
+              **_window(prof, last_n, prof_wall, "lk"),
+              **_range_fields(prof, SYSTEM_RANGES, last_n, prof_wall)}
+    say("profile-system-kitti", frames=last_n, first_frame=warm * n,
+        profiled_wall_ms_per_frame=f"{prof_wall:.3f}",
+        closures=system.n_loops - loops0,
+        keyframes_processed=system.keyframes_processed - kf0,
+        system_readbacks=system.readbacks - reads0,
+        estimator_readbacks=int(out["readbacks"].sum()),
+        graph_capacity=system.graph.t.shape[0], **fields)
+
+
+def capture_loop(dev, path: str) -> None:
+    """system-kitti as `chip_smoke.py` runs it, recording its graph lane's
+    inputs into `path` (see the module docstring)."""
+    import numpy as np
+
+    import chip_smoke
+    from lmono_tpu_torch.config import kitti_scale_config
+    from lmono_tpu_torch.loop import detector as det_mod
+    from lmono_tpu_torch.utils.lie import pose_stack
+
+    nodes, regs, holder = [], [], {}
+
+    def observe(system):
+        add = system._add_node
+
+        def add_node(corr_pose, raw_cam, res, time, pos, frame_idx):
+            nodes.append((raw_cam, res, time, frame_idx))
+            return add(corr_pose, raw_cam, res, time, pos, frame_idx)
+
+        system._add_node = add_node
+        holder["system"] = system
+
+    register = det_mod.register
+
+    def recorded(init_pose, *banks_and_cfg):
+        out, diag = register(init_pose, *banks_and_cfg)
+        regs.append((init_pose, banks_and_cfg[:8], out, diag["inliers"][-1]))
+        return out, diag
+
+    det_mod.register = recorded
+    try:
+        res = chip_smoke.system_phase("system-kitti", kitti_scale_config(), dev, 800,
+                                      observe=observe)
+    finally:
+        det_mod.register = register
+    system = holder["system"]
+    cpu = lambda x: x.detach().cpu().numpy()
+    raw = pose_stack(system._raw_poses)
+    est = system.final_trajectory()
+    out = {"frames": np.int64(chip_smoke.SYS_FRAMES), "chunk": np.int64(chip_smoke.CHUNK),
+           "seed": np.int64(800), "ate_m": np.float64(res["ate"]),
+           "raw_pose_t": cpu(raw.t), "raw_pose_q": cpu(raw.q),
+           "est_t": cpu(est.t), "est_q": cpu(est.q),
+           "node_frame": np.array([n[3] for n in nodes], np.int64),
+           "node_time": np.array([n[2] for n in nodes], np.float64),
+           "node_cam_t": np.stack([cpu(n[0].t) for n in nodes]),
+           "node_cam_q": np.stack([cpu(n[0].q) for n in nodes])}
+    for f in ("found", "old_seq", "rel_t", "rel_q", "refined"):
+        out[f"res_{f}"] = np.stack([cpu(getattr(n[1], f)) for n in nodes])
+    names = ("edge", "edge_mask", "planar", "planar_mask",
+             "bank_edge", "bank_edge_mask", "bank_planar", "bank_planar_mask")
+    for k, (init, banks, o, inl) in enumerate(regs):
+        out[f"reg{k}_init_t"], out[f"reg{k}_init_q"] = cpu(init.t), cpu(init.q)
+        out[f"reg{k}_out_t"], out[f"reg{k}_out_q"] = cpu(o.t), cpu(o.q)
+        out[f"reg{k}_inliers"] = cpu(inl)
+        for nm, b in zip(names, banks):
+            out[f"reg{k}_{nm}"] = cpu(b)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, n_regs=np.int64(len(regs)), **out)
+    say("capture-loop", path=path, keyframes=len(nodes), register_calls=len(regs),
+        closures=system.n_loops, ate_m=f"{res['ate']:.6f}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                     help="checkout whose lmono_tpu_torch is measured")
+    ap.add_argument("--capture-loop", metavar="FILE",
+                    help="only record system-kitti's graph lane into FILE (.npz)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_perf: torch.cuda.is_available() is false")
@@ -335,10 +503,14 @@ def main() -> None:
         flush=True)
     say("root", package=os.path.dirname(lmono_tpu_torch.__file__))
     dev = torch.device("cuda", 0)
+    if a.capture_loop:
+        capture_loop(dev, a.capture_loop)
+        return
     knn_times(dev)
     lk_times(dev)
     profile_windows(dev)
     profile_pipeline(dev)
+    profile_system(dev)
 
 
 if __name__ == "__main__":

@@ -3,18 +3,20 @@
 
     python3 chip_smoke.py
 
-Drives the port's three slices through their entry points,
-`LidarOdometry.process_chunk`, `FeatureTracker.process` and
-`FusedPipeline.process_chunk`, and checks every kernel on their paths
-against its plain PyTorch version:
+Drives the port's four slices through their entry points,
+`LidarOdometry.process_chunk`, `FeatureTracker.process`,
+`FusedPipeline.process_chunk` and `SlamSystem.process_chunk`, and checks
+every kernel on their paths against its plain PyTorch version:
 
 1. device: the card, its power limit and the toolchain;
 2. build: compiles the CUDA kernels (`lmono_tpu_torch/csrc/knn.cu`, K1, and
    `lmono_tpu_torch/csrc/lk.cu`, K2), one `nvcc` each, started together;
 3. knn: K1 (one launch per call: a thread-block cluster splits the bank)
-   against `knn_plain` at the odometry's shapes and a ragged case; an
-   exact-tie case with bank points duplicated across the kernel's warp
-   slices and cluster ranks, whose index lists must equal the plain
+   against `knn_plain` at the odometry's shapes, the loop lane's LiDAR
+   refinement shapes (512×512 edge, 1024×1024 planar) and a ragged case;
+   exact-tie cases (at 1536×32768 and at both loop-lane shapes) with bank
+   points duplicated across the kernel's warp slices and cluster ranks and
+   masked rows among them, whose index lists must equal the plain
    version's; a `center=` case through `ops/knn.py:knn`; with times of the
    kernel, the plain version and the nearest PyTorch calls (`cdist`, a
    mask, `topk`), and the bound and roofline share of each shape;
@@ -40,7 +42,7 @@ against its plain PyTorch version:
    first frames again on the CPU;
 7. pipeline-synthetic / pipeline-kitti: the fused step (odometry → KLT →
    sliding-window fusion) at `synthetic_config()` and
-   `kitti_scale_config()`, 120 frames staged on the card (sweeps with
+   `kitti_scale_config()`, 60 frames staged on the card (sweeps with
    0.01 m noise and renders through the synthetic rig) in chunks of 20, the
    estimator seeded with the rig's extrinsic, as `bench.py` runs the
    pipeline row: fused ATE gate 0.5 m beside the raw laser ATE, fps,
@@ -49,10 +51,27 @@ against its plain PyTorch version:
    outer iteration and 1 K2 launch per frame, no plain call; (synthetic)
    each stage of the first 16 frames stepped again on the CPU from the
    card's state before it, with the same noise (the estimator on the
-   card's tracks and laser pose).
+   card's tracks and laser pose);
+8. system-synthetic / system-kitti: the whole system, `SlamSystem.process_chunk`
+   (the fused step, the dense colored map, the loop lane: BRIEF place
+   recognition, PnP verification, LiDAR refinement of closures through K1,
+   the pose graph), loop and map on, the estimator seeded with the rig's
+   extrinsic, 340 frames of the circuit (a lap of 251 and the revisit)
+   generated on the card chunk by chunk, in chunks of 20, the first chunk
+   excluded from fps, as `bench.py` runs the system row (synthetic) and its
+   kitti-scale row (full widths; its 1000 frames cut to these 340 for
+   time): ATE of `final_trajectory` < 0.6 m and ≤ raw ATE × 1.05, at
+   least one closure; fps, closures, keyframes processed, reaps, graph
+   solves and capacity, map points, host read-backs per chunk, drift, peak
+   memory, the closures' relative translations against the simulator's
+   truth; exactly 1 K2 launch per frame, 2 K1 launches per outer iteration
+   per frame in the odometry and per outer refinement iteration per
+   processed keyframe in the loop lane (counted around its keyframe step),
+   no plain call.
 
-Prints one JSON line of kernel results (time, launches on pipeline-kitti and
-launches per frame on every path, bound, plain and library times), the `nvidia-smi`
+Prints one JSON line of kernel results (time, launches on system-kitti and
+launches per frame on every path, bound, plain and library times, and K1's
+loop-lane shapes), the elapsed seconds on an earlier line, the `nvidia-smi`
 name and power limit, and last `{"ok": true, "device": {...}}`.  Any failed check raises,
 so the exit code is non-zero and the last line is not printed.  Needs a
 CUDA device; imports nothing of JAX.
@@ -73,6 +92,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 N_FRAMES = 120
+PIPE_FRAMES = 60          # the pipeline phases, cut from 120 for the time budget
+SYS_FRAMES = 340          # bench.py's system row: a lap of 251 and the revisit
+SYS_ATE_GATE_M = 0.6      # bench.py:233-236
+SYS_RAW_FACTOR = 1.05
 CHUNK = 20
 WARMUP_CHUNKS = 1
 ATE_GATE_M = 0.5          # bench.py's odometry gate
@@ -84,8 +107,12 @@ KNN_GAP = 1e-4            # index sets compared where d²_(k+1) − d²_k exceed
 # kernels line's shape), synthetic edge and plane, and a ragged case (Q, M
 # not multiples of the tiles) with fewer than k valid rows
 KNN_CASES = [(1536, 32768, 0.9), (4096, 65536, 0.9), (512, 8192, 0.9),
-             (1024, 16384, 0.9), (777, 3001, 3.0 / 3001)]
-KNN_TIE_SHAPE = (1536, 32768)
+             (1024, 16384, 0.9), (512, 512, 0.9), (1024, 1024, 0.9),
+             (777, 3001, 3.0 / 3001)]
+# the loop lane's LiDAR refinement: a keyframe's 512 edge / 1024 planar
+# features against the candidate's banks of the same sizes (config.py:209-211)
+KNN_LOOP_SHAPES = [(512, 512), (1024, 1024)]
+KNN_TIE_SHAPES = [(1536, 32768)] + KNN_LOOP_SHAPES
 CPU_CHECK_FRAMES = 4
 # CUDA vs CPU pose, as tests/test_torch_odometry.py holds the port to the
 # JAX package: f32 sums in another order move the reference's
@@ -266,25 +293,28 @@ def knn_phase(dev) -> dict:
                           "bound_ms": bound, "bound_by": by}
 
     # exact ties: copies of one point on both sides of every warp-slice and
-    # cluster-rank boundary of the kernel's plan, queries sitting on them
-    Q, M = KNN_TIE_SHAPE
-    plan = knn_plan(Q, M, _sms(dev))
-    t = center + 20.0 * torch.randn(M, 3, generator=g, device=dev)
-    bounds = sorted({lo for _, _, lo, _ in plan.slices(M) if 0 < lo < M})
-    for n, b in enumerate(bounds):
-        t[b - 2:b + 2] = t[(37 * n) % M]
-    q = t[(37 * torch.arange(Q, device=dev)) % M].clone()
-    mask = torch.ones(M, dtype=torch.bool, device=dev)
-    mask[torch.tensor(bounds[::3], device=dev)] = False
-    d_k, i_k = knn_cuda(q, t, mask, KNN_K)
-    d_p, i_p = knn_plain(q, t, mask, KNN_K + 1)
-    torch.cuda.synchronize()
-    ties = int((d_p[:, 1:KNN_K] == d_p[:, :KNN_K - 1]).sum())
-    max_err = max(max_err, _knn_check("ties", d_k, i_k, d_p, i_p, exact_idx=True))
-    say("knn-ties", Q=Q, M=M, cluster=plan.cluster, boundaries=len(bounds),
-        tied_pairs=ties, index_lists="equal")
-    if ties < len(bounds):
-        raise AssertionError(f"knn ties: only {ties} tied pairs")
+    # cluster-rank boundary of the kernel's plan, queries sitting on them,
+    # masked rows among the copies
+    for Q, M in KNN_TIE_SHAPES:
+        plan = knn_plan(Q, M, _sms(dev))
+        t = center + 20.0 * torch.randn(M, 3, generator=g, device=dev)
+        bounds = sorted({lo for _, _, lo, _ in plan.slices(M) if 0 < lo < M})
+        for n, b in enumerate(bounds):
+            t[b - 2:b + 2] = t[(37 * n) % M]
+        q = t[(37 * torch.arange(Q, device=dev)) % M].clone()
+        mask = torch.ones(M, dtype=torch.bool, device=dev)
+        mask[torch.tensor(bounds[::3], device=dev)] = False
+        d_k, i_k = knn_cuda(q, t, mask, KNN_K)
+        d_p, i_p = knn_plain(q, t, mask, KNN_K + 1)
+        torch.cuda.synchronize()
+        ties = int((d_p[:, 1:KNN_K] == d_p[:, :KNN_K - 1]).sum())
+        max_err = max(max_err, _knn_check(f"ties ({Q},{M})", d_k, i_k, d_p, i_p,
+                                          exact_idx=True))
+        say("knn-ties", Q=Q, M=M, cluster=plan.cluster, span=plan.span,
+            boundaries=len(bounds), masked=len(bounds[::3]), tied_pairs=ties,
+            index_lists="equal")
+        if ties < len(bounds):
+            raise AssertionError(f"knn ties ({Q},{M}): only {ties} tied pairs")
 
     # the centre subtracted in the kernel, through ops/knn.py:knn
     q = 1000.0 + 20.0 * torch.randn(Q, 3, generator=g, device=dev)
@@ -489,28 +519,37 @@ def lk_phase(dev) -> dict:
     return {"max_abs_err": max_err, **fused[FB_CASES[0][:2]], "fused": fused}
 
 
-def _stage(cfg, dev, seed: int, camera=None):
-    """Chunks of CHUNK simulated sweeps along the circuit (and, given a
-    camera config, the frame's render through the synthetic rig, as
-    `bench.py` stages the pipeline's frames), and the trajectory."""
+def _chunk_maker(cfg, dev, seed: int, n_frames: int, camera=None):
+    """(make, trajectory): make(i0) simulates frames i0…i0+CHUNK−1 along the
+    circuit on the card, stacked: sweeps and, given a camera config, each
+    frame's render through the synthetic rig (as `bench.py` stages them)."""
     from lmono_tpu_torch.io import synthetic as syn
     from lmono_tpu_torch.utils.lie import Pose
 
     scene = syn.make_city_scene(device=dev)
-    traj = syn.circuit_trajectory(N_FRAMES, device=dev)
+    traj = syn.circuit_trajectory(n_frames, device=dev)
     T_LC = syn.synthetic_T_CL(device=dev).inverse()
     g = torch.Generator(device=dev).manual_seed(seed)
-    frames = []
-    for i in range(N_FRAMES):
-        pose = Pose(traj.t[i], traj.q[i])
-        fr = syn.simulate_lidar(scene, pose, cfg, NOISE_STD_M, generator=g)
-        fr = {k: fr[k] for k in ("points", "ranges", "valid")}
-        if camera is not None:
-            fr["image"] = syn.render_camera(scene, pose.compose(T_LC), camera)
-        frames.append(fr)
-    chunks = [{k: torch.stack([f[k] for f in frames[c:c + CHUNK]])
-               for k in frames[0]}
-              for c in range(0, N_FRAMES, CHUNK)]
+
+    def make(i0: int) -> dict:
+        frames = []
+        for i in range(i0, i0 + CHUNK):
+            pose = Pose(traj.t[i], traj.q[i])
+            fr = syn.simulate_lidar(scene, pose, cfg, NOISE_STD_M, generator=g)
+            fr = {k: fr[k] for k in ("points", "ranges", "valid")}
+            if camera is not None:
+                fr["image"] = syn.render_camera(scene, pose.compose(T_LC), camera)
+            frames.append(fr)
+        return {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
+
+    return make, traj
+
+
+def _stage(cfg, dev, seed: int, camera=None, n_frames: int = N_FRAMES):
+    """Chunks of CHUNK simulated frames along the circuit, all staged on
+    the card, and the trajectory."""
+    make, traj = _chunk_maker(cfg, dev, seed, n_frames, camera)
+    chunks = [make(c) for c in range(0, n_frames, CHUNK)]
     torch.cuda.synchronize()
     return chunks, traj
 
@@ -771,7 +810,7 @@ def _pipeline_vs_cpu(name: str, cfg, cam, T_CL, chunk: dict, noise) -> None:
 
 def pipeline_phase(name: str, cfg, dev, seed: int, compare_cpu: bool) -> dict:
     """`FusedPipeline.process_chunk` (odometry → tracker → window fusion) on
-    120 frames staged on the card, the estimator seeded with the rig's
+    PIPE_FRAMES frames staged on the card, the estimator seeded with the rig's
     extrinsic, as `bench.py` runs the JAX package's pipeline row."""
     from lmono_tpu_torch.camera import camera_from_config
     from lmono_tpu_torch.eval.ate import ate_rmse
@@ -783,7 +822,7 @@ def pipeline_phase(name: str, cfg, dev, seed: int, compare_cpu: bool) -> dict:
     from lmono_tpu_torch.ops.cuda import lk as lk_cuda_mod
     from lmono_tpu_torch.utils.lie import Pose
 
-    chunks, traj = _stage(cfg.lidar, dev, seed, camera=cfg.camera)
+    chunks, traj = _stage(cfg.lidar, dev, seed, camera=cfg.camera, n_frames=PIPE_FRAMES)
     T_CL = synthetic_T_CL(device=dev)
     cam = camera_from_config(cfg.camera)
     torch.cuda.reset_peak_memory_stats()
@@ -807,42 +846,182 @@ def pipeline_phase(name: str, cfg, dev, seed: int, compare_cpu: bool) -> dict:
 
     res = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
     est, laser = (Pose(res[p + "_t"], res[p + "_q"]) for p in ("pose", "laser"))
-    if est.t.shape != (N_FRAMES, 3) or est.q.shape != (N_FRAMES, 4):
+    if est.t.shape != (PIPE_FRAMES, 3) or est.q.shape != (PIPE_FRAMES, 4):
         raise AssertionError(f"{name}: pose shapes {est.t.shape}, {est.q.shape}")
     if not (torch.isfinite(est.t).all() and torch.isfinite(est.q).all()):
         raise AssertionError(f"{name}: non-finite poses")
     ate, ate_laser = ate_rmse(est, traj), ate_rmse(laser, traj)
     attempts, readbacks = res["lm_attempts"], res["readbacks"]
     solved = int((attempts > 0).sum())
-    full = torch.arange(N_FRAMES) >= cfg.estimator.window_size
+    full = torch.arange(PIPE_FRAMES) >= cfg.estimator.window_size
     keyframes = int((res["is_keyframe"].cpu() & full).sum())
     ex_dt, ex_dr = _extrinsic_error(res["ex_t"][-1], res["ex_q"][-1], T_CL)
     fps = (len(chunks) - WARMUP_CHUNKS) * CHUNK / dt
-    say(name, frames=N_FRAMES, fps=f"{fps:.3f}", ate_m=f"{ate:.6f}",
+    say(name, frames=PIPE_FRAMES, fps=f"{fps:.3f}", ate_m=f"{ate:.6f}",
         laser_ate_m=f"{ate_laser:.6f}", keyframes=keyframes,
         non_keyframes=int(full.sum()) - keyframes, solved=solved,
         lm_attempts_per_solve=f"{int(attempts.sum()) / max(solved, 1):.3f}",
-        readbacks_per_frame=f"{int(readbacks.sum()) / N_FRAMES:.3f}",
+        readbacks_per_frame=f"{int(readbacks.sum()) / PIPE_FRAMES:.3f}",
         extrinsic_err_m=f"{ex_dt:.6f}", extrinsic_err_deg=f"{ex_dr:.6f}",
         initialized=bool(res["initialized"][-1]),
         knn_launches=knn_launches, lk_launches=lk_launches,
         knn_plain_calls=plain[0], lk_plain_calls=plain[1], peak_mem_bytes=peak)
     if not ate < ATE_GATE_M:
         raise AssertionError(f"{name}: ATE {ate} m fails the {ATE_GATE_M} m gate")
-    want = 2 * ((cfg.lidar.scan_to_map_iters + 1) // 2) * N_FRAMES
-    if knn_launches != want or lk_launches != N_FRAMES:
+    want = 2 * ((cfg.lidar.scan_to_map_iters + 1) // 2) * PIPE_FRAMES
+    if knn_launches != want or lk_launches != PIPE_FRAMES:
         raise AssertionError(f"{name}: {knn_launches} K1 and {lk_launches} K2 "
-                             f"launches, expected {want} and {N_FRAMES}")
+                             f"launches, expected {want} and {PIPE_FRAMES}")
     if plain != (0, 0):
         raise AssertionError(f"{name}: {plain} plain KNN and LK calls on CUDA")
-    if solved < N_FRAMES - cfg.estimator.window_size:
+    if solved < PIPE_FRAMES - cfg.estimator.window_size:
         raise AssertionError(f"{name}: only {solved} frames solved")
 
     if compare_cpu:
         _pipeline_vs_cpu(name, cfg, cam, T_CL, chunks[0], noise0)
-    return {"fps": fps, "ate": ate, "knn_per_frame": knn_launches / N_FRAMES,
-            "lk_per_frame": lk_launches / N_FRAMES, "knn_launches": knn_launches,
+    return {"fps": fps, "ate": ate, "knn_per_frame": knn_launches / PIPE_FRAMES,
+            "lk_per_frame": lk_launches / PIPE_FRAMES, "knn_launches": knn_launches,
             "lk_launches": lk_launches}
+
+
+def _closure_errors(system, traj, T_CL) -> dict:
+    """Each loop edge's relative translation against the simulator's truth
+    (camera frames of the two nodes' frames), its weight and switch."""
+    from lmono_tpu_torch.utils.lie import Pose
+
+    g, frames = system.graph, torch.tensor(system._node_frames, device=traj.t.device)
+    L = min(system.n_loops, g.loop_mask.shape[0])
+    fi, fj = frames[g.loop_i[:L]], frames[g.loop_j[:L]]
+    T_LC = T_CL.inverse()
+    cam_i = Pose(traj.t[fi], traj.q[fi]).compose(T_LC)
+    cam_j = Pose(traj.t[fj], traj.q[fj]).compose(T_LC)
+    rel = cam_i.inverse().compose(cam_j)
+    return {"t": torch.linalg.vector_norm(rel.t - g.loop_dt[:L], dim=-1).cpu(),
+            "w": g.loop_w[:L].cpu(), "on": g.loop_mask[:L].cpu()}
+
+
+def system_phase(name: str, cfg, dev, seed: int, observe=None) -> dict:
+    """`SlamSystem.process_chunk` with loop and map on over SYS_FRAMES
+    frames made on the card chunk by chunk (only `process_chunk` is on the
+    fps clock), the estimator seeded with the rig's extrinsic, as
+    `bench.py:bench_system` / `bench_kitti_scale` run the JAX package.
+    K1's launches are counted apart in the loop lane (around each
+    `LoopDetector.process_keyframe`) and in the odometry (the rest).
+    observe: called with the system once it is made (`chip_perf.py`
+    records its graph lane through it)."""
+    from lmono_tpu_torch.eval.ate import ate_rmse
+    from lmono_tpu_torch.eval.kitti_metrics import kitti_odometry_errors
+    from lmono_tpu_torch.io.synthetic import synthetic_T_CL
+    from lmono_tpu_torch.ops import knn as knn_mod
+    from lmono_tpu_torch.ops import lk as lk_mod
+    from lmono_tpu_torch.ops.cuda import knn as knn_cuda_mod
+    from lmono_tpu_torch.ops.cuda import lk as lk_cuda_mod
+    from lmono_tpu_torch.pipeline import SlamSystem
+    from lmono_tpu_torch.utils.lie import pose_stack
+
+    T_CL = synthetic_T_CL(device=dev)
+    cfg = cfg.replace(laser_to_camera=tuple(T_CL.to_mat4().reshape(-1).tolist()))
+    make, traj = _chunk_maker(cfg.lidar, dev, seed, SYS_FRAMES, camera=cfg.camera)
+    n_chunks = SYS_FRAMES // CHUNK
+    torch.cuda.reset_peak_memory_stats()
+    system = SlamSystem(cfg, device=dev)
+    loop_knn = 0
+    keyframe_step = system.loop.process_keyframe
+
+    def counted_keyframe_step(*args, **kwargs):
+        nonlocal loop_knn
+        before = knn_cuda_mod.knn_kernel_launches
+        out = keyframe_step(*args, **kwargs)
+        loop_knn += knn_cuda_mod.knn_kernel_launches - before
+        return out
+
+    system.loop.process_keyframe = counted_keyframe_step
+    if observe is not None:
+        observe(system)
+    knn_cuda_mod.knn_kernel_launches = lk_cuda_mod.lk_kernel_launches = 0
+    knn_mod.knn_plain_calls = lk_mod.lk_plain_calls = 0
+    est_readbacks = 0
+    t_proc = 0.0
+    for c in range(n_chunks):
+        chunk = make(c * CHUNK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = system.process_chunk(chunk, t0=c * CHUNK * 0.1)
+        torch.cuda.synchronize()
+        if c >= WARMUP_CHUNKS:
+            t_proc += time.perf_counter() - t0
+        est_readbacks += int(outs["readbacks"].sum())
+    t0 = time.perf_counter()
+    system._reap_loops()
+    torch.cuda.synchronize()
+    t_proc += time.perf_counter() - t0
+    est = system.final_trajectory()
+    torch.cuda.synchronize()
+    knn_launches = knn_cuda_mod.knn_kernel_launches
+    lk_launches = lk_cuda_mod.lk_kernel_launches
+    plain = (knn_mod.knn_plain_calls, lk_mod.lk_plain_calls)
+    peak = torch.cuda.max_memory_allocated()
+
+    if est.t.shape != (SYS_FRAMES, 3) or est.q.shape != (SYS_FRAMES, 4):
+        raise AssertionError(f"{name}: trajectory shapes {est.t.shape}, {est.q.shape}")
+    if not (torch.isfinite(est.t).all() and torch.isfinite(est.q).all()):
+        raise AssertionError(f"{name}: non-finite poses")
+    ate = ate_rmse(est, traj)
+    ate_raw = ate_rmse(pose_stack(system._raw_poses), traj)
+    drift = kitti_odometry_errors(est, traj)
+    err = _closure_errors(system, traj, T_CL)
+    fps = (n_chunks - WARMUP_CHUNKS) * CHUNK / t_proc
+    kfs = system.keyframes_processed
+    n_outer = max(1, (cfg.lidar.scan_to_map_iters + 1) // 2)
+    n_refine = max(1, (cfg.loop.refine_iters + 1) // 2)
+    odometry_knn = knn_launches - loop_knn
+    timer = system.timer.summary()
+    say(name, frames=SYS_FRAMES, note="bench.py's kitti-scale row runs 1000 frames; "
+        "cut to 340 (a lap and the revisit) for time" if name == "system-kitti" else
+        "bench.py's system row", fps=f"{fps:.3f}", ate_m=f"{ate:.6f}",
+        raw_ate_m=f"{ate_raw:.6f}",
+        within_raw_x1_05=bool(ate <= ate_raw * SYS_RAW_FACTOR), closures=system.n_loops,
+        refined_closures=int((err["w"] == system.LOOP_W_REFINED).sum()),
+        switched_off=int((~err["on"]).sum()),
+        closure_err_m_median=f"{err['t'].median():.4f}" if len(err["t"]) else "none",
+        closure_err_m_max=f"{err['t'].max():.4f}" if len(err["t"]) else "none",
+        drift_pct=f"{drift['t_err_pct']:.4f}", keyframes_processed=kfs,
+        reaps=system.reaps, graph_solves=system.graph_solves,
+        graph_capacity=system.graph.t.shape[0],
+        map_points=system.mapper.n_points,
+        readbacks_per_chunk=f"{(system.readbacks + est_readbacks) / n_chunks:.2f}",
+        system_readbacks=system.readbacks, estimator_readbacks=est_readbacks,
+        knn_launches=knn_launches, loop_lane_knn_launches=loop_knn,
+        odometry_knn_launches=odometry_knn,
+        loop_knn_per_keyframe=f"{loop_knn / max(kfs, 1):.3f}",
+        knn_per_frame=f"{knn_launches / SYS_FRAMES:.3f}", lk_launches=lk_launches,
+        lk_per_frame=f"{lk_launches / SYS_FRAMES:.3f}",
+        knn_plain_calls=plain[0], lk_plain_calls=plain[1], peak_mem_bytes=peak,
+        stage_seconds=",".join(f"{k}:{v['total_s']:.2f}" for k, v in timer.items()))
+    if not ate < SYS_ATE_GATE_M:
+        raise AssertionError(f"{name}: ATE {ate} m fails the {SYS_ATE_GATE_M} m gate")
+    # bench.py's system-row gates (bench.py:233-236), on both cells.  At
+    # KITTI scale the pose graph's fixed GN × CG budget leaves the graph
+    # unconverged, so where within ~0.2-0.25 m the corrected ATE lands there
+    # depends on f32 rounding (PERF.md §6, tests/kitti_loop_lane.py)
+    if not ate <= ate_raw * SYS_RAW_FACTOR:
+        raise AssertionError(f"{name}: loop closures degraded ATE: {ate} vs raw {ate_raw}")
+    if system.n_loops < 1:
+        raise AssertionError(f"{name}: no loop closed on the revisit")
+    if lk_launches != SYS_FRAMES:
+        raise AssertionError(f"{name}: {lk_launches} K2 launches, expected {SYS_FRAMES}")
+    if odometry_knn != 2 * n_outer * SYS_FRAMES:
+        raise AssertionError(f"{name}: {odometry_knn} K1 launches outside the loop lane, "
+                             f"expected {2 * n_outer * SYS_FRAMES}")
+    if kfs < 1 or loop_knn != 2 * n_refine * kfs:
+        raise AssertionError(f"{name}: {loop_knn} K1 launches in the loop lane for "
+                             f"{kfs} processed keyframes, expected {2 * n_refine} each")
+    if plain != (0, 0):
+        raise AssertionError(f"{name}: {plain} plain KNN and LK calls on CUDA")
+    return {"fps": fps, "ate": ate, "knn_launches": knn_launches,
+            "lk_launches": lk_launches, "knn_per_frame": knn_launches / SYS_FRAMES,
+            "lk_per_frame": lk_launches / SYS_FRAMES,
+            "loop_knn_per_keyframe": loop_knn / kfs}
 
 
 def main() -> None:
@@ -866,16 +1045,26 @@ def main() -> None:
                                     dev, seed=500, compare_cpu=True)
     pipe_kitti = pipeline_phase("pipeline-kitti", kitti_scale_config(), dev,
                                 seed=600, compare_cpu=False)
+    say("time", after="pipelines", seconds=f"{time.perf_counter() - t_start:.1f}")
+    sys_synthetic = system_phase("system-synthetic", synthetic_config(), dev, seed=700)
+    sys_kitti = system_phase("system-kitti", kitti_scale_config(), dev, seed=800)
     say("time", seconds=f"{time.perf_counter() - t_start:.1f}")
+    loop_shapes = {f"{Q}x{M}": knn["shapes"][(Q, M)] for Q, M in KNN_LOOP_SHAPES}
     print(json.dumps({"kernels": [{
         "name": "knn", "route": "cuda",
         "source": "lmono_tpu_torch/csrc/knn.cu",
         "replaces": "lmono_tpu/ops/pallas/knn.py:90",
-        "launches": pipe_kitti["knn_launches"],
+        "launches": sys_kitti["knn_launches"],
         "launches_per_frame": {"kitti": kitti["per_frame"],
                                "synthetic": synthetic["per_frame"],
                                "pipeline-kitti": pipe_kitti["knn_per_frame"],
-                               "pipeline-synthetic": pipe_synthetic["knn_per_frame"]},
+                               "pipeline-synthetic": pipe_synthetic["knn_per_frame"],
+                               "system-kitti": sys_kitti["knn_per_frame"],
+                               "system-synthetic": sys_synthetic["knn_per_frame"]},
+        "loop_lane_launches_per_keyframe": {
+            "system-kitti": sys_kitti["loop_knn_per_keyframe"],
+            "system-synthetic": sys_synthetic["loop_knn_per_keyframe"]},
+        "loop_lane_shapes": loop_shapes,
         "max_abs_err": knn["max_abs_err"],
         "ms": knn["ms"], "plain_ms": knn["plain_ms"],
         "bound_ms": knn["bound_ms"], "bound_by": knn["bound_by"],
@@ -883,11 +1072,13 @@ def main() -> None:
         "name": "lk", "route": "cuda",
         "source": "lmono_tpu_torch/csrc/lk.cu",
         "replaces": "lmono_tpu/ops/pallas/lk.py:109",
-        "launches": pipe_kitti["lk_launches"],
+        "launches": sys_kitti["lk_launches"],
         "launches_per_frame": {"kitti": tracker_kitti["per_frame"],
                                "synthetic": tracker_synthetic["per_frame"],
                                "pipeline-kitti": pipe_kitti["lk_per_frame"],
-                               "pipeline-synthetic": pipe_synthetic["lk_per_frame"]},
+                               "pipeline-synthetic": pipe_synthetic["lk_per_frame"],
+                               "system-kitti": sys_kitti["lk_per_frame"],
+                               "system-synthetic": sys_synthetic["lk_per_frame"]},
         "max_abs_err": lk["max_abs_err"],
         "ms": lk["ms"], "plain_ms": lk["plain_ms"],
         "bound_ms": lk["bound_ms"], "bound_by": lk["bound_by"],

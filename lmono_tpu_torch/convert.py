@@ -4,7 +4,8 @@ This system has no weights; what a run carries is the odometry state
 (poses, the two voxel banks and the frame counter), the tracker state
 (feature slots and the previous frame's pyramid), the estimator state (the
 window, its feature table and prior, the hand-eye ring and the previous
-frame's tracks and laser pose), and the configuration.
+frame's tracks and laser pose), the loop lane's keyframe DB, pose graph and
+host gates, the dense map's active bank, and the configuration.
 Both arrive here as plain data (numpy arrays, JSON), so this module needs
 neither JAX nor `lmono_tpu`.
 """
@@ -21,6 +22,9 @@ from lmono_tpu_torch.estimator.tracker import TrackerState
 from lmono_tpu_torch.estimator.window import FeatureTable, MargPrior, WindowState
 from lmono_tpu_torch.fused import FusedState
 from lmono_tpu_torch.lidar.odometry import OdometryState
+from lmono_tpu_torch.loop.keyframe_db import KeyframeDB
+from lmono_tpu_torch.loop.posegraph import PoseGraph
+from lmono_tpu_torch.mapping.builder import ColorMap
 from lmono_tpu_torch.ops.voxelmap import PointBank
 from lmono_tpu_torch.utils.lie import Pose
 
@@ -129,6 +133,43 @@ def fused_state_from_numpy(tree, device=None) -> tuple[FusedState, int]:
     if trk_frame != frame:
         raise ValueError(f"odometry frame {frame} != tracker frame {trk_frame}")
     return FusedState(odo, trk, est), frame
+
+
+def keyframe_db_from_numpy(tree, device=None) -> tuple[KeyframeDB, int]:
+    """A `lmono_tpu.loop.keyframe_db.KeyframeDB` pulled to numpy → (the
+    port's DB on `device`, its host keyframe count)."""
+    b, i32, u8 = torch.bool, torch.int32, torch.uint8
+    db = _fields(KeyframeDB, tree, device, {
+        "desc": u8, "win_desc": u8, "kp_mask": b, "win_mask": b, "seq": i32,
+        "valid": b, "count": i32, "lidar_edge_mask": b, "lidar_planar_mask": b})
+    return db, int(np.asarray(tree.count))
+
+
+def posegraph_from_numpy(tree, device=None) -> tuple[PoseGraph, int, int]:
+    """A `lmono_tpu.loop.posegraph.PoseGraph` pulled to numpy → (the port's
+    graph on `device`, its host node and loop counts)."""
+    b, i32, i64 = torch.bool, torch.int32, torch.int64
+    g = _fields(PoseGraph, tree, device, {
+        "node_mask": b, "seq_mask": b, "loop_i": i64, "loop_j": i64,
+        "loop_mask": b, "n_nodes": i32, "n_loops": i32})
+    return g, int(np.asarray(tree.n_nodes)), int(np.asarray(tree.n_loops))
+
+
+def colormap_from_numpy(tree, device=None) -> ColorMap:
+    """A `lmono_tpu.mapping.builder.ColorMap` pulled to numpy → the port's
+    on `device`."""
+    return _fields(ColorMap, tree, device, {"mask": torch.bool})
+
+
+def loop_detector_from_numpy(det, ref, device=None) -> None:
+    """Carry a `lmono_tpu.loop.LoopDetector`'s state `ref` (its DB pulled to
+    numpy, its host gates) into the port's `det` on `device`."""
+    det.db, det.count = keyframe_db_from_numpy(ref.db, device)
+    det._last_time = ref._last_time
+    det._last_pos = None if ref._last_pos is None else np.asarray(ref._last_pos)
+    det._last_loop_time = ref._last_loop_time
+    det._last_loop_pos = (None if ref._last_loop_pos is None
+                          else np.asarray(ref._last_loop_pos))
 
 
 def config_from_json(s: str) -> SystemConfig:

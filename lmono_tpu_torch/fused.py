@@ -11,8 +11,8 @@ The JAX state carries a PRNG key split three ways per frame; here
 `FusedPipeline` holds a `torch.Generator` and hands each step its noise:
 the tracker's RANSAC Gumbel noise and, when estimate_laser == 2, the
 relative-pose RANSAC's.  The host keeps the frame number; the window count
-is min(frame, W).  `system_chunk` (dense map and loop lanes) comes with
-the system slice.
+is min(frame, W).  `system_chunk` adds the dense-map merge and the loop
+lane's per-frame landmark extraction, sharing one depth image per frame.
 """
 
 from __future__ import annotations
@@ -28,6 +28,10 @@ from lmono_tpu_torch.estimator.estimator import EstimatorState, fusion_step
 from lmono_tpu_torch.estimator.initializer import RP_ITERS
 from lmono_tpu_torch.estimator.tracker import TrackerState, tracker_step
 from lmono_tpu_torch.lidar.odometry import OdometryState, odometry_step
+from lmono_tpu_torch.loop.landmarks import subsample_features, window_landmarks
+from lmono_tpu_torch.mapping.builder import colormap_update_hash
+from lmono_tpu_torch.mapping.depth import (backproject_colored, complete_depth,
+                                           project_cloud)
 from lmono_tpu_torch.ops.ransac import gumbel_noise
 from lmono_tpu_torch.utils.lie import Pose
 
@@ -52,7 +56,8 @@ class FusedState(NamedTuple):
 
 def fused_step(state: FusedState, frame: dict, cam: CameraModel,
                cfg: SystemConfig, gumbel: torch.Tensor, n: int,
-               rp_gumbel: torch.Tensor | None = None) -> tuple[FusedState, dict]:
+               rp_gumbel: torch.Tensor | None = None,
+               with_features: bool = False) -> tuple[FusedState, dict]:
     """One frame through odometry → tracker → fusion.
 
     frame: {points (R,W,3), ranges (R,W), valid (R,W), image (H,W)}.
@@ -60,7 +65,9 @@ def fused_step(state: FusedState, frame: dict, cam: CameraModel,
     rp_gumbel: the relative-pose noise (96, 8, max_features), used when
     estimate_laser == 2.  n: the host frame number (the odometry's and
     tracker's `frame`).  The result holds device tensors and two host
-    counts, `lm_attempts` and `readbacks`.
+    counts, `lm_attempts` and `readbacks`; with_features=True adds the
+    scan's edge/planar feature sets (`result["features"]`) for the loop
+    lane's LiDAR refinement.
     """
     odo, lo = odometry_step(state.odo, {k: frame[k] for k in _SCAN},
                             cfg.lidar, n)
@@ -80,7 +87,17 @@ def fused_step(state: FusedState, frame: dict, cam: CameraModel,
         "lm_attempts": out.lm_attempts,
         "readbacks": out.readbacks,
     }
+    if with_features:
+        result["features"] = lo["features"]
     return FusedState(odo, trk, est), result
+
+
+def _stack(outs: list) -> dict:
+    """Per-frame result dicts → one dict of stacked tensors (host counts
+    become CPU int tensors)."""
+    return {k: (torch.tensor([o[k] for o in outs]) if isinstance(outs[0][k], int)
+                else torch.stack([o[k] for o in outs]))
+            for k in outs[0]}
 
 
 def fused_chunk(state: FusedState, frames: dict, cam: CameraModel,
@@ -97,10 +114,62 @@ def fused_chunk(state: FusedState, frames: dict, cam: CameraModel,
             state, {k: v[i] for k, v in frames.items()}, cam, cfg, gumbels[i],
             n + i, None if rp_gumbels is None else rp_gumbels[i])
         outs.append(out)
-    return state, {k: (torch.tensor([o[k] for o in outs])
-                       if isinstance(outs[0][k], int)
-                       else torch.stack([o[k] for o in outs]))
-                   for k in outs[0]}
+    return state, _stack(outs)
+
+
+def system_chunk(state: FusedState, cmap, frames: dict, corr: Pose,
+                 cam: CameraModel, cfg: SystemConfig, enable_map: bool,
+                 enable_loop: bool, gumbels: torch.Tensor, n: int,
+                 rp_gumbels: torch.Tensor | None = None):
+    """The full per-frame system over a chunk: odometry + tracking + window
+    fusion, the dense-map merge and the loop lane's landmark extraction
+    (port of `lmono_tpu/fused.py:system_chunk`).
+
+    The LiDAR depth image (projection + morphological completion) is made
+    once per frame and shared by the map merge and the landmark depths.
+    `corr` is the pose-graph drift correction at chunk start, applied to
+    mapped points and landmark outputs.  `gumbels`/`rp_gumbels` and `n` are
+    as in `fused_chunk`.
+
+    Returns (state', cmap', stacked per-frame outputs with `map_fill`, the
+    active bank's occupancy at chunk end, as a 0-d device tensor).
+    """
+    Kw = cfg.loop.window_points
+    Ke, Kp = cfg.loop.kf_edge_points, cfg.loop.kf_planar_points
+    mcfg = cfg.mapping
+    outs = []
+    for i in range(frames["points"].shape[0]):
+        frame = {k: v[i] for k, v in frames.items()}
+        state, res = fused_step(state, frame, cam, cfg, gumbels[i], n + i,
+                                None if rp_gumbels is None else rp_gumbels[i],
+                                with_features=enable_loop)
+        feats = res.pop("features", None)
+        w = state.est.window
+        corr_cam = corr.compose(Pose(res["cam_t"], res["cam_q"]))
+        res.update(ccam_t=corr_cam.t, ccam_q=corr_cam.q)
+        if enable_map or enable_loop:
+            pts_cam = Pose(w.ex_t, w.ex_q).apply(frame["points"].reshape(-1, 3))
+            depth, dmask = project_cloud(pts_cam, frame["valid"].reshape(-1), cam,
+                                         mcfg.depth_min, mcfg.depth_max)
+            depth_f, fmask = complete_depth(depth, dmask, mcfg)
+        if enable_map:
+            pts_c, colors, ok = backproject_colored(depth_f, fmask, frame["image"],
+                                                    cam, mcfg)
+            keep = ok & (pts_c[:, 1] > -mcfg.crop_height) & res["initialized"]
+            cmap = colormap_update_hash(cmap, corr_cam.apply(pts_c), colors, keep,
+                                        mcfg.map_voxel)
+        if enable_loop:
+            lm = window_landmarks(w, cam, mcfg, Kw, depth=depth_f, depth_mask=fmask)
+            res.update(lm_pts=corr.apply(lm.pts_w), lm_norm=lm.norm, lm_uv=lm.uv,
+                       lm_sel=lm.sel, lm_pnp=lm.sel_pnp)
+            le, lem = subsample_features(feats.edge_points, feats.edge_mask, Ke)
+            lp, lpm = subsample_features(feats.planar_points, feats.planar_mask, Kp)
+            res.update(loop_edge=le, loop_edge_mask=lem, loop_planar=lp,
+                       loop_planar_mask=lpm)
+        outs.append(res)
+    outs = _stack(outs)
+    outs["map_fill"] = torch.sum(cmap.mask)
+    return state, cmap, outs
 
 
 class FusedPipeline:
@@ -155,10 +224,13 @@ class FusedPipeline:
         self.frame += frames["points"].shape[0]
         return outs
 
-    def process(self, frame: dict, noise: tuple | None = None) -> dict:
-        """One frame; noise: optional explicit (tracker, relative-pose)."""
+    def process(self, frame: dict, noise: tuple | None = None,
+                with_features: bool = False) -> dict:
+        """One frame; noise: optional explicit (tracker, relative-pose);
+        with_features: add the scan's feature sets (see `fused_step`)."""
         g, rp = self.noise() if noise is None else noise
         self.state, out = fused_step(self.state, self._to_device(frame),
-                                     self.cam, self.cfg, g, self.frame, rp)
+                                     self.cam, self.cfg, g, self.frame, rp,
+                                     with_features)
         self.frame += 1
         return out

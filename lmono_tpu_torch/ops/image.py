@@ -1,7 +1,7 @@
-"""Dense image ops used by the tracker: pyramids, gradients, bilinear
-sampling, the 3×3 blur and max pool.
+"""Dense image ops: pyramids, gradients, bilinear sampling, blurs, max
+pool, and the morphology of the depth completion.
 
-Port of the tracker's part of `lmono_tpu/ops/image.py` (`:15-87`).  Images
+Port of `lmono_tpu/ops/image.py`.  Images
 are (H, W) float32 tensors.  `conv_general_dilated` is a cross-correlation,
 as `F.conv2d` is, so kernels are not flipped; SAME padding pads with zeros
 for the blurs and with −inf for `max_pool_same`.
@@ -72,6 +72,13 @@ def gauss_blur3(img: torch.Tensor) -> torch.Tensor:
     return _sep_conv(img, _G3, _G3)
 
 
+_G5 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
+
+
+def gauss_blur5(img: torch.Tensor) -> torch.Tensor:
+    return _sep_conv(img, _G5, _G5)
+
+
 def scharr_gradients(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(Ix, Iy) via Scharr kernels (same choice OpenCV's KLT uses)."""
     return _sep_conv(img, _SCHARR_D, _SCHARR_S), _sep_conv(img, _SCHARR_S, _SCHARR_D)
@@ -104,3 +111,43 @@ def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
 def max_pool_same(img: torch.Tensor, k: int) -> torch.Tensor:
     """k×k max pool with SAME (−inf) padding, for NMS; k odd."""
     return F.max_pool2d(img[None, None], k, stride=1, padding=k // 2)[0, 0]
+
+
+def dilate(img: torch.Tensor, k: int) -> torch.Tensor:
+    """Grayscale morphological dilation with a k×k square structuring
+    element (depth-completion building block)."""
+    return max_pool_same(img, k)
+
+
+def erode(img: torch.Tensor, k: int) -> torch.Tensor:
+    return -max_pool_same(-img, k)
+
+
+def dilate_masked(img: torch.Tensor, valid: torch.Tensor, k: int,
+                  kernel=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dilation treating invalid pixels as −inf; optional 0/1 numpy kernel
+    shape (CROSS / DIAMOND / FULL).  The shaped form is a max over shifted
+    copies that wrap around the borders (`roll`), as in the reference.
+    Returns (dilated, new_valid)."""
+    neg = torch.where(valid, img, torch.full_like(img, -torch.inf))
+    if kernel is None:
+        out = max_pool_same(neg, k)
+    else:
+        out = torch.full_like(img, -torch.inf)
+        r = k // 2
+        for dy in range(-r, r + 1):
+            for dx in range(-r, r + 1):
+                if kernel[dy + r, dx + r] == 0:
+                    continue
+                out = torch.maximum(out, torch.roll(neg, (dy, dx), dims=(0, 1)))
+    new_valid = out > -torch.inf
+    return torch.where(new_valid, out, torch.zeros_like(out)), new_valid
+
+
+def median_blur_approx(img: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """Exact k×k median: the middle of the k² shifted copies (wrapping
+    around the borders, as the reference's `roll`s do)."""
+    r = k // 2
+    stack = torch.stack([torch.roll(img, (dy, dx), dims=(0, 1))
+                         for dy in range(-r, r + 1) for dx in range(-r, r + 1)])
+    return torch.sort(stack, dim=0).values[stack.shape[0] // 2]

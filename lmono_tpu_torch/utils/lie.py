@@ -1,7 +1,7 @@
 """SO(3)/SE(3) operations on quaternions and rotation matrices, in PyTorch.
 
-Port of `lmono_tpu/utils/lie.py` (the part the odometry and estimator
-slices use).
+Port of `lmono_tpu/utils/lie.py` (the part the odometry, estimator and
+system slices use).
 
 Conventions
 -----------
@@ -167,6 +167,36 @@ def boxminus(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# Euler helpers (for the 4-DoF pose graph; reference `R2ypr` / `ypr2R`)
+# --------------------------------------------------------------------------
+
+def mat_to_ypr(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix → (yaw, pitch, roll) in radians (ZYX)."""
+    yaw = torch.atan2(m[..., 1, 0], m[..., 0, 0])
+    pitch = torch.atan2(-m[..., 2, 0],
+                        torch.sqrt(m[..., 2, 1] ** 2 + m[..., 2, 2] ** 2))
+    roll = torch.atan2(m[..., 2, 1], m[..., 2, 2])
+    return torch.stack([yaw, pitch, roll], dim=-1)
+
+
+def ypr_to_mat(ypr: torch.Tensor) -> torch.Tensor:
+    """(yaw, pitch, roll) radians → rotation matrix Rz(y) Ry(p) Rx(r)."""
+    y, p, r = ypr[..., 0], ypr[..., 1], ypr[..., 2]
+    cy, sy = torch.cos(y), torch.sin(y)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cr, sr = torch.cos(r), torch.sin(r)
+    m = torch.stack(
+        [
+            cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr,
+            sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr,
+            -sp, cp * sr, cp * cr,
+        ],
+        dim=-1,
+    )
+    return m.reshape(ypr.shape[:-1] + (3, 3))
+
+
+# --------------------------------------------------------------------------
 # Pose (SE(3)) value type
 # --------------------------------------------------------------------------
 
@@ -182,6 +212,10 @@ class Pose(NamedTuple):
         t = torch.zeros(batch_shape + (3,), dtype=dtype, device=device)
         q = quat_identity(dtype, device).expand(batch_shape + (4,)).clone()
         return Pose(t, q)
+
+    @staticmethod
+    def from_mat4(m: torch.Tensor) -> "Pose":
+        return Pose(m[..., :3, 3], mat_to_quat(m[..., :3, :3]))
 
     @staticmethod
     def from_Rt(R: torch.Tensor, t: torch.Tensor) -> "Pose":

@@ -65,6 +65,12 @@ def test_port_imports_no_jax():
         "lmono_tpu_torch.estimator.marginalization",
         "lmono_tpu_torch.estimator.initializer",
         "lmono_tpu_torch.estimator.estimator", "lmono_tpu_torch.fused",
+        "lmono_tpu_torch.mapping", "lmono_tpu_torch.mapping.depth",
+        "lmono_tpu_torch.mapping.builder", "lmono_tpu_torch.loop",
+        "lmono_tpu_torch.loop.landmarks", "lmono_tpu_torch.loop.keyframe_db",
+        "lmono_tpu_torch.loop.detector", "lmono_tpu_torch.loop.posegraph",
+        "lmono_tpu_torch.ops.brief", "lmono_tpu_torch.pipeline",
+        "lmono_tpu_torch.io.sync", "lmono_tpu_torch.utils.timing",
     ]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
@@ -84,6 +90,24 @@ def test_chip_scripts_import_no_jax():
     # the scripts the card runs: neither they nor what they import reach JAX
     code = ("import sys\n"
             "import chip_smoke, chip_perf\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'lmono_tpu'))\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_vocabularies_load_from_the_port_without_the_reference():
+    # the shipped vocabularies come from lmono_tpu_torch/assets/, with
+    # lmono_tpu never imported
+    code = ("import os, sys\n"
+            "from lmono_tpu_torch.ops import brief\n"
+            "for bits, dim in brief.SHIPPED_VOCABS:\n"
+            "    path = brief.vocab_asset_path(bits, dim)\n"
+            "    assert os.path.dirname(path) == os.path.join(\n"
+            "        os.path.dirname(brief.__file__).rsplit(os.sep, 1)[0], 'assets'), path\n"
+            "    assert brief.make_codebook(bits, dim).shape == (bits, dim)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'lmono_tpu'))\n"
             "assert not bad, bad\n")

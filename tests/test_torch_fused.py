@@ -22,7 +22,16 @@ millimetres under one-ulp input changes, and the tracker's slots agree on
 * a free-running 16-frame `FusedPipeline` run with the same noise: ATE
   within 5 mm of the JAX run's, and under 0.2 m;
 * `process` equal to `process_chunk` (port against port, so on smaller
-  LiDAR feature sets, which make the CPU odometry cheaper).
+  LiDAR feature sets, which make the CPU odometry cheaper);
+* `system_chunk` (the fused step plus the dense-map merge and the loop
+  lane's landmarks, one depth image per frame shared by both) over 8
+  frames, each package's `fused_step` replaced by the JAX run's state and
+  outputs for that frame, so that the two packages' system stages see the
+  same inputs and the odometry's gap above does not enter: `ccam_*` within
+  1e-6, landmark selections and LiDAR feature subsets equal, landmark
+  points within 1e-5 relative, the map bank's slots, colours and
+  `map_fill` equal bit for bit and its points within 1e-5 relative (0.1 mm
+  absolute: the back-projection's f32 sums in another order).
 """
 
 import dataclasses
@@ -40,11 +49,14 @@ from lmono_tpu import fused as jf
 from lmono_tpu.camera import pinhole_camera as jpinhole
 from lmono_tpu.config import synthetic_config
 from lmono_tpu.io import synthetic as jsyn
+from lmono_tpu.mapping.builder import ColorMap as JColorMap
 from lmono_tpu.utils.lie import Pose as JPose
 from lmono_tpu_torch import fused as tf
 from lmono_tpu_torch.camera import camera_from_config
-from lmono_tpu_torch.convert import config_from_json, fused_state_from_numpy
+from lmono_tpu_torch.convert import (colormap_from_numpy, config_from_json,
+                                     fused_state_from_numpy)
 from lmono_tpu_torch.eval.ate import ate_rmse
+from lmono_tpu_torch.lidar.features import ScanFeatures
 from lmono_tpu_torch.ops import knn as tknn
 from lmono_tpu_torch.ops import lk as tlk
 from lmono_tpu_torch.utils.lie import Pose as TPose
@@ -111,11 +123,11 @@ def jax_tpu_route(monkeypatch):
 
 @functools.lru_cache(maxsize=None)
 def _jax_run():
-    """The JAX run: (states before each frame, outputs, each frame's
-    tracker noise)."""
+    """The JAX run: (states before each frame, outputs with the scan's
+    LiDAR features, each frame's tracker noise)."""
     c = CFG.camera
     cam = jpinhole(c.width, c.height, c.fx, c.fy, c.cx, c.cy)
-    step = jax.jit(lambda s, fr: jf.fused_step(s, fr, cam, CFG))
+    step = jax.jit(lambda s, fr: jf.fused_step(s, fr, cam, CFG, with_features=True))
     state = jf.FusedState.init(CFG, _t_cl()[0])
     states, outs, noise = [], [], []
     frames, _, _ = _frames()
@@ -229,3 +241,75 @@ def test_runs_on_the_card_unless_asked_for_the_cpu():
     assert fp.device == torch.device("cpu") and not fp.state.odo.pose.t.is_cuda
     g, rp = fp.noise()
     assert g.shape == (TCFG.tracker.f_ransac_iters, 8, 40) and rp is None
+
+
+SYS_FRAMES = range(4, 12)
+SYS_MAP_CAPACITY = 1 << 15
+
+
+def _corr():
+    """A drift correction of decimetres and a few degrees."""
+    q = np.array([0.998, 0.02, -0.03, 0.05], np.float32)
+    return np.array([0.3, -0.2, 0.05], np.float32), q / np.linalg.norm(q)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_system_chunk():
+    """The JAX package's `system_chunk` over SYS_FRAMES, its `fused_step`
+    replaced by the JAX run's state and outputs for each frame."""
+    states, outs, _ = _jax_run()
+    frames, _, _ = _frames()
+    idx = list(SYS_FRAMES)
+    stack = lambda *xs: np.stack(xs)  # noqa: E731
+    fr = {k: np.stack([frames[i][k] for i in idx]) for k in frames[0]}
+    fr["_st"] = jax.tree.map(stack, *[states[i + 1] for i in idx])
+    fr["_res"] = jax.tree.map(stack, *[outs[i] for i in idx])
+    c = CFG.camera
+    cam = jpinhole(c.width, c.height, c.fx, c.fy, c.cx, c.cy)
+    real = jf.fused_step
+    jf.fused_step = lambda st, frame, *a, **k: (frame["_st"], dict(frame["_res"]))
+    try:
+        ct, cq = _corr()
+        _, cmap, res = jax.jit(lambda s, cm, f: jf.system_chunk(
+            s, cm, f, JPose(jnp.asarray(ct), jnp.asarray(cq)), cam, CFG, True, True))(
+            states[idx[0]], JColorMap.empty(SYS_MAP_CAPACITY), fr)
+    finally:
+        jf.fused_step = real
+    return jax.device_get(cmap), jax.device_get(res)
+
+
+def test_system_chunk_teacher_forced_matches(jax_tpu_route, monkeypatch):
+    states, outs, _ = jax_tpu_route()
+    frames, _, _ = _frames()
+    jmap, ref = _jax_system_chunk()
+    idx = list(SYS_FRAMES)
+    after = {i: fused_state_from_numpy(states[i + 1], device="cpu")[0] for i in idx}
+
+    def forced(state, frame, cam, cfg, gumbel, n, rp=None, with_features=False):
+        res = {k: torch.from_numpy(np.asarray(v)) for k, v in outs[n].items()
+               if k != "features"}
+        res["features"] = ScanFeatures(
+            *[torch.from_numpy(np.asarray(v)) for v in outs[n]["features"]])
+        return after[n], res
+
+    monkeypatch.setattr(tf, "fused_step", forced)
+    ct, cq = _corr()
+    st0, _ = fused_state_from_numpy(states[idx[0]], device="cpu")
+    fr = {k: torch.from_numpy(np.stack([frames[i][k] for i in idx])) for k in frames[0]}
+    _, cmap, res = tf.system_chunk(
+        st0, colormap_from_numpy(jax.device_get(JColorMap.empty(SYS_MAP_CAPACITY)), "cpu"),
+        fr, TPose(torch.from_numpy(ct), torch.from_numpy(cq)), camera_from_config(TCFG.camera),
+        TCFG, True, True, torch.zeros(len(idx), 1), idx[0])
+    for k in ("ccam_t", "ccam_q"):
+        np.testing.assert_allclose(res[k].numpy(), ref[k], rtol=0, atol=1e-6, err_msg=k)
+    for k in ("lm_sel", "lm_pnp", "loop_edge", "loop_edge_mask", "loop_planar",
+              "loop_planar_mask"):
+        np.testing.assert_array_equal(res[k].numpy(), ref[k], err_msg=k)
+    for k in ("lm_pts", "lm_norm", "lm_uv"):
+        np.testing.assert_allclose(res[k].numpy(), ref[k], rtol=1e-5, atol=1e-5, err_msg=k)
+    for k in ("mask", "colors"):
+        np.testing.assert_array_equal(getattr(cmap, k).numpy(), np.asarray(getattr(jmap, k)),
+                                      err_msg=k)
+    np.testing.assert_allclose(cmap.points.numpy(), jmap.points, rtol=1e-5, atol=1e-4)
+    assert int(res["map_fill"]) == int(ref["map_fill"]) == int(cmap.mask.sum()) > 1000
+    assert bool(res["lm_pnp"].any()) and bool(res["loop_planar_mask"].any())

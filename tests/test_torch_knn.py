@@ -140,8 +140,10 @@ def test_cuda_wrapper_rejects_cpu_tensors():
 
 
 # the odometry's shapes (kitti edge and plane, synthetic edge and plane),
-# ragged ones, and a bank smaller than a warp's share
-PLAN_SHAPES = [(1536, 32768), (4096, 65536), (512, 8192), (1024, 16384),
+# the loop lane's LiDAR refinement (edge and plane), ragged ones, and a
+# bank smaller than a warp's share
+LOOP_SHAPES = [(512, 512), (1024, 1024)]
+PLAN_SHAPES = [(1536, 32768), (4096, 65536), (512, 8192), (1024, 16384), *LOOP_SHAPES,
                (777, 3001), (1, 1), (4097, 65537), (33, 70000)]
 
 
@@ -163,6 +165,21 @@ def test_knn_plan_covers_the_bank_once(Q, M, sms):
         covered[lo:hi] += 1
         prev_hi, prev = hi, (rank, warp)
     assert prev_hi == M and (covered == 1).all()
+
+
+@pytest.mark.parametrize("Q,M", LOOP_SHAPES)
+@pytest.mark.parametrize("sms", [132, 114])
+def test_knn_plan_gives_every_rank_and_warp_rows_at_the_loop_shapes(Q, M, sms):
+    # the refinement's small banks: one CTA per cluster, and no warp slice
+    # empty or cut short
+    from lmono_tpu_torch.ops.cuda.knn import knn_plan
+
+    plan = knn_plan(Q, M, sms)
+    assert plan.cluster == 1 and plan.span * plan.warps == M
+    sl = plan.slices(M)
+    assert len(sl) == plan.cluster * plan.warps
+    assert all(hi - lo == plan.span for _, _, lo, hi in sl)
+    assert sl[0][2] == 0 and sl[-1][3] == M
 
 
 def test_knn_plan_at_the_main_path_shapes():

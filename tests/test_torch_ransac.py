@@ -1,13 +1,16 @@
-"""Fundamental-matrix RANSAC of the port (`lmono_tpu_torch.ops.ransac`)
-against `lmono_tpu.ops.ransac`, on the same numpy correspondences and the
-same random draws: the port takes the Gumbel noise that
+"""RANSAC of the port (`lmono_tpu_torch.ops.ransac`: fundamental matrix and
+PnP) against `lmono_tpu.ops.ransac`, on the same numpy correspondences and
+the same random draws: the port takes the Gumbel noise that
 `jax.random.categorical` adds to its logits.
 
 Tolerances: the draws equal; the QR nullspace vector within 1e-5 and the
 power-iteration one within 1e-4 (f32 sums in another order); F within
 1e-4 and Sampson distances within 1e-3 relative (plus 1e-12); the inlier
 masks equal except points whose Sampson distance lies within 1e-3
-relative of the threshold (printed).
+relative of the threshold (printed).  PnP: the DLT pose within 1e-4 (the
+same 12×12 QR and polar iteration), the RANSAC pose within 1e-4 m and
+1e-4 in q, the inlier mask equal except points whose reprojection error
+lies within 1e-5 relative of the threshold, `ok` equal.
 """
 
 import jax
@@ -133,3 +136,91 @@ def test_few_valid_points_accept_every_valid_one():
                                      thresh=THRESH)
     np.testing.assert_array_equal(inl_t.numpy(), mask)
     np.testing.assert_array_equal(np.asarray(inl_j), mask)
+
+
+PNP_ITERS = 48
+PNP_THRESH = (10.0 / F_PX) ** 2
+_jpnp = jax.jit(jr.ransac_pnp, static_argnames=("iters", "thresh", "min_inliers"))
+
+
+def _pnp_problem(seed, n=120, outliers=0.3, noise_px=0.5, valid=0.85):
+    """World points, normalized observations of a camera-from-world pose,
+    with pixel noise, outliers and a validity mask; and that pose."""
+    from lmono_tpu.utils.lie import mat_to_quat
+
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-10, 10, n), rng.uniform(-4, 4, n),
+                  rng.uniform(6, 35, n)], -1) + [30.0, -5.0, 2.0]
+    a = rng.normal(size=3) * 0.1
+    K = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+    R = np.eye(3) + K + K @ K / 2
+    U, _, Vt = np.linalg.svd(R)
+    R = U @ Vt
+    t = -R @ np.array([30.0, -5.0, 2.0]) + rng.normal(size=3) * 0.5
+    Pc = X @ R.T + t
+    x = Pc[:, :2] / Pc[:, 2:] + rng.normal(0, noise_px / F_PX, (n, 2))
+    bad = rng.random(n) < outliers
+    x[bad] = rng.uniform(-0.5, 0.5, (int(bad.sum()), 2))
+    q = np.asarray(mat_to_quat(jnp.asarray(R, jnp.float32)))
+    return (X.astype(np.float32), x.astype(np.float32), rng.random(n) < valid,
+            t.astype(np.float32), q)
+
+
+def test_dlt_pnp_matches():
+    X, x, _, _, _ = _pnp_problem(0, n=6, outliers=0.0, noise_px=0.0)
+    Rj, tj = jax.jit(jr._dlt_pnp)(jnp.asarray(X), jnp.asarray(x))
+    Rt, tt = tr._dlt_pnp(torch.from_numpy(X), torch.from_numpy(x))
+    np.testing.assert_allclose(Rt.numpy(), np.asarray(Rj), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(tt.numpy(), np.asarray(tj), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("seed,prior,valid", [(1, True, 0.85), (2, False, 0.85),
+                                              (3, True, 0.04)])
+def test_ransac_pnp_matches(seed, prior, valid):
+    from lmono_tpu.utils.lie import Pose as JPose
+    from lmono_tpu_torch.utils.lie import Pose as TPose
+
+    X, x, mask, t, q = _pnp_problem(seed, valid=valid)
+    key = jax.random.PRNGKey(seed)
+    # a prior off by half a metre, as a revisit's old keyframe pose is
+    pj = JPose(jnp.asarray(t + 0.5), jnp.asarray(q)) if prior else None
+    pose, inl, ok = _jpnp(jnp.asarray(X), jnp.asarray(x), jnp.asarray(mask), key,
+                          iters=PNP_ITERS, thresh=PNP_THRESH, min_inliers=5, prior_pose=pj)
+    g = torch.from_numpy(np.asarray(jax.random.gumbel(key, (PNP_ITERS, 6, X.shape[0]))))
+    pt = TPose(torch.from_numpy(t + 0.5), torch.from_numpy(q)) if prior else None
+    tpose, tinl, tok = tr.ransac_pnp(torch.from_numpy(X), torch.from_numpy(x),
+                                     torch.from_numpy(mask), g, thresh=PNP_THRESH,
+                                     min_inliers=5, prior_pose=pt)
+    assert bool(tok) == bool(ok)
+    if valid < 0.5:
+        # ~5 valid points: the samples repeat points, the DLT systems are
+        # rank-deficient and rounding picks their nullspace (ROADMAP
+        # Queue 3, `_qr_nullvec`); only the verdict is held
+        assert not bool(ok)
+        return
+    np.testing.assert_allclose(tpose.t.numpy(), np.asarray(pose.t), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(tpose.q.numpy(), np.asarray(pose.q), rtol=0, atol=1e-4)
+    Pc = np.asarray(pose.apply(jnp.asarray(X)))
+    e2 = np.sum((Pc[:, :2] / np.maximum(Pc[:, 2:], 1e-6) - x) ** 2, -1)
+    near = np.abs(e2 - PNP_THRESH) < 1e-5 * PNP_THRESH
+    np.testing.assert_array_equal(tinl.numpy()[~near], np.asarray(inl)[~near])
+    assert bool(ok) and int(inl.sum()) > 40
+    np.testing.assert_allclose(np.asarray(pose.t), t, atol=0.05)
+
+
+def test_ransac_pnp_batches_over_leading_dims():
+    """Two problems stacked equal the two run alone."""
+    from lmono_tpu_torch.utils.lie import Pose as TPose
+
+    probs = [_pnp_problem(s) for s in (4, 5)]
+    gen = torch.Generator().manual_seed(0)
+    g = tr.gumbel_noise((2, PNP_ITERS, 6, 120), gen)
+    prior = TPose(torch.from_numpy(np.stack([p[3] + 0.3 for p in probs])),
+                  torch.from_numpy(np.stack([p[4] for p in probs])))
+    both = tr.ransac_pnp(*(torch.from_numpy(np.stack([p[i] for p in probs]))
+                           for i in range(3)), g, thresh=PNP_THRESH, prior_pose=prior)
+    for b in range(2):
+        one = tr.ransac_pnp(*(torch.from_numpy(probs[b][i]) for i in range(3)), g[b],
+                            thresh=PNP_THRESH, prior_pose=TPose(prior.t[b], prior.q[b]))
+        np.testing.assert_allclose(both[0].t[b].numpy(), one[0].t.numpy(), atol=1e-5)
+        assert torch.equal(both[1][b], one[1]) and bool(both[2][b]) == bool(one[2])
