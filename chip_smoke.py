@@ -69,6 +69,24 @@ every kernel on their paths against its plain PyTorch version:
    processed keyframe in the loop lane (counted around its keyframe step),
    no plain call.
 
+9. kitti-files: the recorded-drive path.  A KITTI odometry tree written from
+   60 frames simulated on the card at `kitti_scale_config()`'s widths
+   (64×2048 scans in ring-major order, 1241×376 PNGs by the port's
+   encoder, calib, times and poses) runs through `run_kitti.main`, the
+   native prefetching loader and `SlamSystem.process` frame by frame, loop
+   and map on, at `kitti_config(0)` with the tree's calibration: the native
+   loader ran, the TUM and KITTI files have 60 rows, the PLY is over 1000
+   bytes, the ATE of the written TUM trajectory against `poses/00.txt` is
+   under 0.5 m, frame 0's regridded ranges equal the simulator's on at
+   least 99% of its cells within range; per-frame fps beside system-kitti's
+   chunked fps, the stage medians; exactly 2 K1 launches per outer
+   iteration per frame in the odometry and per outer refinement iteration
+   per processed keyframe in the loop lane, 1 K2 launch per frame, no plain
+   call.  Then resume: a system runs frames 0-29 from the loader,
+   checkpoints, runs 30-44; a fresh system loaded from the checkpoint runs
+   30-44 again: its poses within 1 mm / 1e-4 rad of the first's (bitwise
+   equality reported), closures, keyframes, DB count and map points equal.
+
 Prints one JSON line of kernel results (time, launches on system-kitti and
 launches per frame on every path, bound, plain and library times, and K1's
 loop-lane shapes), the elapsed seconds on an earlier line, the `nvidia-smi`
@@ -153,6 +171,14 @@ TRACK_CPU_ALIVE_AGREE = 0.97
 TRACK_CPU_ATOL_PX = 1e-2
 # pipeline frames stepped again on the CPU: with window 10, 6 of them solve
 PIPE_CPU_FRAMES = 16
+# kitti-files: a KITTI tree of this many simulated frames through run_kitti;
+# the resume check runs frames 0..RESUME_AT-1, checkpoints, runs on to
+# RESUME_END-1, and a fresh system loaded from the checkpoint runs the rest
+KITTI_FILES_FRAMES = 60
+RESUME_AT, RESUME_END = 30, 45
+RESUME_ATOL_M, RESUME_ATOL_RAD = 1e-3, 1e-4
+REGRID_AGREE = 0.99           # frame 0's cells whose range equals the simulator's
+REGRID_ATOL_M = 1e-4
 
 
 def say(phase: str, **kv) -> None:
@@ -1024,6 +1050,202 @@ def system_phase(name: str, cfg, dev, seed: int, observe=None) -> dict:
             "loop_knn_per_keyframe": loop_knn / kfs}
 
 
+def _counted_loop_knn():
+    """Wraps `LoopDetector.process_keyframe` (for every detector made
+    meanwhile) to count K1's launches inside it; returns (counts, undo)."""
+    from lmono_tpu_torch.loop.detector import LoopDetector
+    from lmono_tpu_torch.ops.cuda import knn as knn_cuda_mod
+
+    step = LoopDetector.process_keyframe
+    counts = {"knn": 0}
+
+    def counted(self, *args, **kwargs):
+        before = knn_cuda_mod.knn_kernel_launches
+        out = step(self, *args, **kwargs)
+        counts["knn"] += knn_cuda_mod.knn_kernel_launches - before
+        return out
+
+    LoopDetector.process_keyframe = counted
+
+    def undo():
+        LoopDetector.process_keyframe = step
+
+    return counts, undo
+
+
+def _resume_check(root: str, dev, lidar) -> dict:
+    """System A runs frames 0..RESUME_END-1 from the tree through the native
+    loader and `process`, checkpointing after frame RESUME_AT-1; a fresh
+    system B loads the checkpoint and runs the same frames from RESUME_AT."""
+    from lmono_tpu_torch import run_kitti
+    from lmono_tpu_torch.native import NativeScanLoader
+    from lmono_tpu_torch.pipeline import SlamSystem
+    from lmono_tpu_torch.utils.lie import pose_stack, quat_conj, quat_mul
+
+    ds, cfg = run_kitti.sequence_config(root, 0, lidar.num_rings, lidar.horiz_res)
+    ckpt = os.path.join(root, "resume.npz")
+    loader = NativeScanLoader(ds.velo_dir, RESUME_END, cfg.lidar)
+    a = SlamSystem(cfg, device=dev)
+    tail, poses_a = [], []
+    t_save = 0.0
+    for i in range(RESUME_END):
+        scan = loader.next()
+        frame = ({k: scan[k] for k in ("points", "ranges", "valid")}, ds.image(i),
+                 ds.time(i))
+        out = a.process(frame[0], frame[1], time=frame[2])
+        if i == RESUME_AT - 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a.save_checkpoint(ckpt)
+            t_save = time.perf_counter() - t0
+        if i >= RESUME_AT:
+            tail.append(frame)
+            poses_a.append(out["pose"])
+    loader.close()
+    b = SlamSystem(cfg, device=dev)
+    t0 = time.perf_counter()
+    b.load_checkpoint(ckpt)
+    t_load = time.perf_counter() - t0
+    poses_b = [b.process(s, img, time=t)["pose"] for s, img, t in tail]
+    pa, pb = pose_stack(poses_a), pose_stack(poses_b)
+    dq = quat_mul(quat_conj(pa.q), pb.q)
+    ang = 2 * torch.atan2(torch.linalg.vector_norm(dq[:, 1:], dim=-1), dq[:, 0].abs())
+    res = {
+        "bitwise": bool(torch.equal(pa.t, pb.t) and torch.equal(pa.q, pb.q)),
+        "max_dt_m": float(torch.linalg.vector_norm(pa.t - pb.t, dim=-1).max()),
+        "max_drot_rad": float(ang.max()),
+        "counts_a": (a.n_loops, a.keyframes_processed, a.loop.count,
+                     int(a.loop.db.count), a.mapper.n_points),
+        "counts_b": (b.n_loops, b.keyframes_processed, b.loop.count,
+                     int(b.loop.db.count), b.mapper.n_points),
+        "ckpt_bytes": os.path.getsize(ckpt), "save_s": t_save, "load_s": t_load}
+    say("kitti-files-resume", frames=f"0-{RESUME_END - 1}, checkpoint after "
+        f"{RESUME_AT - 1}, resumed {RESUME_AT}-{RESUME_END - 1}",
+        bitwise=res["bitwise"], max_dt_m=f"{res['max_dt_m']:.3e}",
+        max_drot_rad=f"{res['max_drot_rad']:.3e}",
+        counts_a_loops_kfs_count_db_points=res["counts_a"],
+        counts_b=res["counts_b"], checkpoint_bytes=res["ckpt_bytes"],
+        save_s=f"{t_save:.2f}", load_s=f"{t_load:.2f}")
+    if not (res["max_dt_m"] <= RESUME_ATOL_M and res["max_drot_rad"] <= RESUME_ATOL_RAD):
+        raise AssertionError(f"kitti-files: the resumed run parts from the straight "
+                             f"one by {res['max_dt_m']} m, {res['max_drot_rad']} rad")
+    if res["counts_a"] != res["counts_b"]:
+        raise AssertionError(f"kitti-files: resumed counts {res['counts_b']} != "
+                             f"{res['counts_a']}")
+    return res
+
+
+def kitti_files_phase(dev, seed: int, chunked_fps=None) -> dict:
+    """The recorded-drive path: a KITTI tree on disk → the native loader and
+    the PNG codec → `SlamSystem.process` per frame (`run_kitti.main`), then
+    the resume check."""
+    import tempfile
+
+    import numpy as np
+
+    from lmono_tpu_torch import native, run_kitti
+    from lmono_tpu_torch.config import kitti_scale_config
+    from lmono_tpu_torch.eval.ate import ate_rmse, load_tum
+    from lmono_tpu_torch.io.kitti import read_poses
+    from lmono_tpu_torch.io.synthetic import write_kitti_tree
+    from lmono_tpu_torch.ops import knn as knn_mod
+    from lmono_tpu_torch.ops import lk as lk_mod
+    from lmono_tpu_torch.ops.cuda import knn as knn_cuda_mod
+    from lmono_tpu_torch.ops.cuda import lk as lk_cuda_mod
+
+    n = KITTI_FILES_FRAMES
+    t_phase = time.perf_counter()
+    wide = kitti_scale_config()
+    with tempfile.TemporaryDirectory() as root:
+        out_dir = os.path.join(root, "out")
+        os.makedirs(out_dir)
+        ply = os.path.join(out_dir, "map.ply")
+        g = torch.Generator(device=dev).manual_seed(seed)
+        t0 = time.perf_counter()
+        _, first = write_kitti_tree(root, wide.lidar, wide.camera, n, NOISE_STD_M,
+                                    generator=g, device=dev)
+        t_tree = time.perf_counter() - t0
+
+        # frame 0 through the native regrid, against the simulator's grid
+        ds, cfg = run_kitti.sequence_config(root, 0, wide.lidar.num_rings,
+                                            wide.lidar.horiz_res)
+        f0 = native.regrid(np.fromfile(os.path.join(ds.velo_dir, "000000.bin"),
+                                       np.float32).reshape(-1, 4), cfg.lidar)
+        r, v = first["ranges"], first["valid"]
+        cells = v & (r > cfg.lidar.min_range) & (r < cfg.lidar.max_range)
+        agree = float((f0["valid"][cells]
+                       & (np.abs(f0["ranges"][cells] - r[cells]) <= REGRID_ATOL_M)).mean())
+
+        counts, undo = _counted_loop_knn()
+        knn_cuda_mod.knn_kernel_launches = lk_cuda_mod.lk_kernel_launches = 0
+        knn_mod.knn_plain_calls = lk_mod.lk_plain_calls = 0
+        loaded = native.native_frames_loaded
+        try:
+            t0 = time.perf_counter()
+            res = run_kitti.main(["--root", root, "--seq", "0", "--frames", str(n),
+                                  "--rings", str(wide.lidar.num_rings), "--horiz-res",
+                                  str(wide.lidar.horiz_res), "--out", out_dir,
+                                  "--ply", ply])
+            torch.cuda.synchronize()
+            t_run = time.perf_counter() - t0
+        finally:
+            undo()
+        knn_launches = knn_cuda_mod.knn_kernel_launches
+        lk_launches = lk_cuda_mod.lk_kernel_launches
+        plain = (knn_mod.knn_plain_calls, lk_mod.lk_plain_calls)
+        loaded = native.native_frames_loaded - loaded
+        system, fps = res["system"], res["fps"]
+        tum_t, tum = load_tum(os.path.join(out_dir, "kitti00_fused.txt"))
+        kitti_rows = np.loadtxt(os.path.join(out_dir, "kitti00_fused_kitti.txt"), ndmin=2)
+        ate = ate_rmse(tum, read_poses(os.path.join(root, "poses", "00.txt")))
+        ply_bytes = os.path.getsize(ply)
+        kfs = system.keyframes_processed
+        timer = system.timer.summary()
+        n_outer = max(1, (cfg.lidar.scan_to_map_iters + 1) // 2)
+        n_refine = max(1, (cfg.loop.refine_iters + 1) // 2)
+        odometry_knn = knn_launches - counts["knn"]
+        say("kitti-files", frames=n, config="kitti_config(0) with the tree's calibration",
+            tree_seconds=f"{t_tree:.2f}", run_kitti_seconds=f"{t_run:.2f}",
+            native_frames_loaded=loaded, tum_rows=len(tum_t),
+            kitti_rows=kitti_rows.shape[0], ply_bytes=ply_bytes, ate_m=f"{ate:.6f}",
+            regrid_agree=f"{agree:.6f}", regrid_cells=int(cells.sum()),
+            fps_per_frame=f"{fps:.3f}",
+            system_kitti_chunked_fps="not run" if chunked_fps is None
+            else f"{chunked_fps:.3f}",
+            closures=system.n_loops, keyframes_processed=kfs,
+            map_points=system.mapper.n_points, knn_launches=knn_launches,
+            odometry_knn_launches=odometry_knn, loop_lane_knn_launches=counts["knn"],
+            lk_launches=lk_launches, knn_plain_calls=plain[0], lk_plain_calls=plain[1],
+            stage_median_ms=",".join(f"{k}:{v['median_ms']:.2f}" for k, v in timer.items()))
+        del res, system
+        if loaded != n:
+            raise AssertionError(f"kitti-files: the native loader gave {loaded} frames")
+        if len(tum_t) != n or kitti_rows.shape != (n, 12):
+            raise AssertionError(f"kitti-files: {len(tum_t)} TUM and "
+                                 f"{kitti_rows.shape} KITTI rows, expected {n}")
+        if not ply_bytes > 1000:
+            raise AssertionError(f"kitti-files: the PLY holds {ply_bytes} bytes")
+        if not ate < ATE_GATE_M:
+            raise AssertionError(f"kitti-files: ATE {ate} m fails the {ATE_GATE_M} m gate")
+        if not agree >= REGRID_AGREE:
+            raise AssertionError(f"kitti-files: frame 0's regrid agrees on {agree:.4%}")
+        if lk_launches != n:
+            raise AssertionError(f"kitti-files: {lk_launches} K2 launches, expected {n}")
+        if odometry_knn != 2 * n_outer * n:
+            raise AssertionError(f"kitti-files: {odometry_knn} K1 launches outside the "
+                                 f"loop lane, expected {2 * n_outer * n}")
+        if counts["knn"] != 2 * n_refine * kfs:
+            raise AssertionError(f"kitti-files: {counts['knn']} K1 launches in the loop "
+                                 f"lane for {kfs} processed keyframes")
+        if plain != (0, 0):
+            raise AssertionError(f"kitti-files: {plain} plain KNN and LK calls on CUDA")
+        resume = _resume_check(root, dev, wide.lidar)
+    return {"fps": fps, "seconds": time.perf_counter() - t_phase, "ate": ate, "agree": agree,
+            "resume": resume, "knn_per_frame": knn_launches / n,
+            "lk_per_frame": lk_launches / n,
+            "loop_knn_per_keyframe": counts["knn"] / max(kfs, 1)}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     name = device_phase()
@@ -1048,7 +1270,10 @@ def main() -> None:
     say("time", after="pipelines", seconds=f"{time.perf_counter() - t_start:.1f}")
     sys_synthetic = system_phase("system-synthetic", synthetic_config(), dev, seed=700)
     sys_kitti = system_phase("system-kitti", kitti_scale_config(), dev, seed=800)
-    say("time", seconds=f"{time.perf_counter() - t_start:.1f}")
+    say("time", after="systems", seconds=f"{time.perf_counter() - t_start:.1f}")
+    files = kitti_files_phase(dev, seed=900, chunked_fps=sys_kitti["fps"])
+    say("time", after="kitti-files", phase_seconds=f"{files['seconds']:.1f}",
+        seconds=f"{time.perf_counter() - t_start:.1f}")
     loop_shapes = {f"{Q}x{M}": knn["shapes"][(Q, M)] for Q, M in KNN_LOOP_SHAPES}
     print(json.dumps({"kernels": [{
         "name": "knn", "route": "cuda",
@@ -1060,10 +1285,12 @@ def main() -> None:
                                "pipeline-kitti": pipe_kitti["knn_per_frame"],
                                "pipeline-synthetic": pipe_synthetic["knn_per_frame"],
                                "system-kitti": sys_kitti["knn_per_frame"],
-                               "system-synthetic": sys_synthetic["knn_per_frame"]},
+                               "system-synthetic": sys_synthetic["knn_per_frame"],
+                               "kitti-files": files["knn_per_frame"]},
         "loop_lane_launches_per_keyframe": {
             "system-kitti": sys_kitti["loop_knn_per_keyframe"],
-            "system-synthetic": sys_synthetic["loop_knn_per_keyframe"]},
+            "system-synthetic": sys_synthetic["loop_knn_per_keyframe"],
+            "kitti-files": files["loop_knn_per_keyframe"]},
         "loop_lane_shapes": loop_shapes,
         "max_abs_err": knn["max_abs_err"],
         "ms": knn["ms"], "plain_ms": knn["plain_ms"],
@@ -1078,7 +1305,8 @@ def main() -> None:
                                "pipeline-kitti": pipe_kitti["lk_per_frame"],
                                "pipeline-synthetic": pipe_synthetic["lk_per_frame"],
                                "system-kitti": sys_kitti["lk_per_frame"],
-                               "system-synthetic": sys_synthetic["lk_per_frame"]},
+                               "system-synthetic": sys_synthetic["lk_per_frame"],
+                               "kitti-files": files["lk_per_frame"]},
         "max_abs_err": lk["max_abs_err"],
         "ms": lk["ms"], "plain_ms": lk["plain_ms"],
         "bound_ms": lk["bound_ms"], "bound_by": lk["bound_by"],

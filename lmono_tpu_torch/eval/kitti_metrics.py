@@ -1,9 +1,9 @@
 """KITTI odometry benchmark metrics (devkit protocol).
 
-Port of `kitti_odometry_errors` from `lmono_tpu/eval/kitti_metrics.py`:
-average translational drift (%) and rotational drift (deg/m) over all
-sub-sequences of the given path lengths (the devkit's 100..800 m by
-default), starting every `step`-th frame.
+Port of `lmono_tpu/eval/kitti_metrics.py`: average translational drift (%)
+and rotational drift (deg/m) over all sub-sequences of the given path
+lengths (the devkit's 100..800 m by default), starting every `step`-th
+frame, and KITTI's 12-number pose files.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from lmono_tpu_torch.eval.ate import to_numpy
-from lmono_tpu_torch.utils.lie import Pose, quat_to_mat
+from lmono_tpu_torch.utils.lie import Pose, mat_to_quat, quat_to_mat
 
 KITTI_LENGTHS = (100.0, 200.0, 300.0, 400.0, 500.0, 600.0, 700.0, 800.0)
 _STEP = 10  # devkit evaluates every 10th frame as a sub-sequence start
@@ -87,3 +87,18 @@ def kitti_odometry_errors(est: Pose, gt: Pose,
         "r_err_deg_per_m": float(np.rad2deg(r.mean())),
         "segments": rows,
     }
+
+
+def save_kitti_poses(path: str, poses: Pose) -> None:
+    """Write KITTI 12-number rows (row-major 3x4 [R|t] per line)."""
+    T = poses_to_mats(poses)
+    with open(path, "w") as f:
+        for Ti in T:
+            f.write(" ".join(f"{v:.9e}" for v in Ti[:3].reshape(-1)) + "\n")
+
+
+def load_kitti_poses(path: str) -> Pose:
+    """Read KITTI 12-number rows → Pose of f32 CPU tensors."""
+    data = torch.tensor(np.loadtxt(path, ndmin=2).reshape(-1, 3, 4),
+                        dtype=torch.float32)
+    return Pose(data[:, :, 3].contiguous(), mat_to_quat(data[:, :, :3]))

@@ -364,3 +364,61 @@ def synthetic_T_CL(device=None) -> Pose:
     ], dtype=torch.float32, device=device)
     t = torch.tensor([0.06, -0.05, 0.27], dtype=torch.float32, device=device)
     return Pose.from_Rt(R, t)
+
+
+# --------------------------------------------------------------------------
+# A simulated drive written as a KITTI odometry tree
+# --------------------------------------------------------------------------
+
+def write_kitti_tree(root: str, lidar: LidarConfig, camera: CameraConfig,
+                     n_frames: int, noise_std: float = 0.01,
+                     generator: torch.Generator | None = None,
+                     device=None, seq: int = 0):
+    """Simulate `n_frames` along the circuit and write them in the KITTI
+    odometry layout that `io/kitti.py` reads: `velodyne/*.bin` (x, y, z,
+    intensity 0, f32; the valid points in ring-major order, as KITTI
+    stores them laser by laser), `image_0/*.png` (the rig camera's render,
+    8-bit gray, by the port's PNG encoder), `calib.txt` (P0..P3 from the
+    camera, Tr = `synthetic_T_CL`), `times.txt` (10 Hz) and
+    `poses/<seq>.txt` (the LiDAR-frame truth, 3×4 rows).
+
+    Returns (trajectory, frame 0's simulated {ranges, valid} as numpy)."""
+    import os
+
+    from lmono_tpu_torch.io.png import write_png
+
+    seq_dir = os.path.join(root, "sequences", f"{seq:02d}")
+    velo, imgd = os.path.join(seq_dir, "velodyne"), os.path.join(seq_dir, "image_0")
+    for d in (velo, imgd, os.path.join(root, "poses")):
+        os.makedirs(d, exist_ok=True)
+    scene = make_city_scene(device=device)
+    traj = circuit_trajectory(n_frames, device=device)
+    T_CL = synthetic_T_CL(device=device)
+    T_LC = T_CL.inverse()
+    first = None
+    for i in range(n_frames):
+        pose = Pose(traj.t[i], traj.q[i])
+        scan = simulate_lidar(scene, pose, lidar, noise_std, generator=generator)
+        valid = scan["valid"].reshape(-1)
+        xyz = scan["points"].reshape(-1, 3)[valid]
+        xyzi = torch.cat([xyz, torch.zeros_like(xyz[:, :1])], 1)
+        xyzi.cpu().numpy().astype(np.float32).tofile(
+            os.path.join(velo, f"{i:06d}.bin"))
+        img = render_camera(scene, pose.compose(T_LC), camera)
+        write_png(os.path.join(imgd, f"{i:06d}.png"),
+                  (np.clip(img.cpu().numpy(), 0, 1) * 255).astype(np.uint8))
+        if i == 0:
+            first = {k: scan[k].cpu().numpy() for k in ("ranges", "valid")}
+    np.savetxt(os.path.join(root, "poses", f"{seq:02d}.txt"),
+               traj.to_mat4()[:, :3].reshape(n_frames, 12).cpu().numpy())
+    P = (f"{camera.fx:.6e} 0 {camera.cx:.6e} 0 "
+         f"0 {camera.fy:.6e} {camera.cy:.6e} 0 0 0 1 0")
+    Tr = T_CL.to_mat4()[:3].reshape(-1).cpu().numpy()
+    with open(os.path.join(seq_dir, "calib.txt"), "w") as f:
+        for k in ("P0", "P1", "P2", "P3"):
+            f.write(f"{k}: {P}\n")
+        f.write("Tr: " + " ".join(f"{v:.9e}" for v in Tr) + "\n")
+    with open(os.path.join(seq_dir, "times.txt"), "w") as f:
+        for i in range(n_frames):
+            f.write(f"{i * 0.1:.6f}\n")
+    return traj, first

@@ -19,8 +19,13 @@ frame in `process` (the keyframe and initialized flags and the track
 count), one per chunk in `process_chunk` (the flags, the corrected camera
 positions and the map's occupancy), one per reap (every pending detection)
 and one more when a reap applied a loop (the count of rejected loop edges).
-`readbacks` counts them.  Left for later: the checkpoint methods and the
-device-mesh branch of the reference's constructor.
+`readbacks` counts them.
+
+`save_checkpoint` / `load_checkpoint` write and restore the whole state,
+keyed by tree path (`utils/checkpoint.py`), including three things the
+reference's checkpoint leaves out: the loop detector's noise source and its
+skip gates, and the map's flushed archive.  Left for later: the device-mesh
+branch of the reference's constructor.
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ from lmono_tpu_torch.loop.posegraph import (PoseGraph, graph_add_loop,
                                             graph_add_node, graph_poses,
                                             optimize_posegraph)
 from lmono_tpu_torch.mapping.builder import ColorMap, MapBuilder
+from lmono_tpu_torch.utils.checkpoint import (CheckpointMismatch, load_extras,
+                                              load_state, save_state)
 from lmono_tpu_torch.utils.lie import (Pose, mat_to_quat, pose_stack,
                                        quat_rotate_inv, ypr_to_mat)
 from lmono_tpu_torch.utils.timing import StageTimer
@@ -365,3 +372,123 @@ class SlamSystem:
         if self.mapper is None:
             return 0
         return self.mapper.save_ply(path)
+
+    # ------------------------------------------------------------------
+    _COUNTERS = ("n_loops", "_n_nodes", "readbacks", "reaps", "graph_solves",
+                 "keyframes_processed")
+
+    def _checkpoint_tree(self) -> dict:
+        """The system's fixed-shape state as a tree: the front (fused state,
+        frame counter, noise source), the drift correction and counters,
+        and, where enabled, the loop detector (DB, noise source, keyframe
+        count, skip-gate times), the pose graph and the map (active bank,
+        frame count, archived count, the occupancy queued by its last
+        check, -1 for none)."""
+        tree = {"front": self.front.state, "correction": self.correction,
+                "count": {"frame": self.front.frame,
+                          **{k.lstrip("_"): getattr(self, k) for k in self._COUNTERS}},
+                "rng": {"front": self.front.generator.get_state()}}
+        if self.loop is not None:
+            tree["loop"] = {"db": self.loop.db, "count": self.loop.count,
+                            "last_time": self.loop._last_time,
+                            "last_loop_time": self.loop._last_loop_time}
+            tree["rng"]["loop"] = self.loop.generator.get_state()
+            tree["graph"] = self.graph
+        if self.mapper is not None:
+            m = self.mapper
+            occ = -1
+            if m._occ is not None:
+                host, event = m._occ
+                if event is not None:
+                    event.synchronize()
+                occ = int(host)
+            tree["map"] = {"bank": m.map, "frames": m.frames,
+                           "archived_n": m._archived_n, "occupancy": occ}
+        return tree
+
+    def save_checkpoint(self, path: str) -> None:
+        """Serialize the full state for resume and replay.  Pending
+        detections are reaped first, so none is left in flight; the host
+        histories (per-frame raw poses, per-node frames and raw camera
+        poses), the skip gates' positions and the map's archive go in as
+        variable-length extras."""
+        self._reap_loops()
+        extra = {}
+        if self._raw_poses:
+            raw = pose_stack(self._raw_poses)
+            extra.update(raw_t=raw.t, raw_q=raw.q)
+        if self._node_frames:
+            cams = pose_stack(self._node_raw_cam)
+            extra.update(node_frames=np.asarray(self._node_frames, np.int64),
+                         node_raw_t=cams.t, node_raw_q=cams.q)
+        if self.loop is not None:
+            for k in ("last_pos", "last_loop_pos"):
+                if getattr(self.loop, "_" + k) is not None:
+                    extra["loop_" + k] = getattr(self.loop, "_" + k)
+        if self.mapper is not None and self.mapper._archive:
+            extra["map_archive_points"] = np.concatenate(
+                [p for p, _ in self.mapper._archive])
+            extra["map_archive_colors"] = np.concatenate(
+                [c for _, c in self.mapper._archive])
+        save_state(path, self._checkpoint_tree(), extra=extra)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore a checkpoint into this system; detections pending here
+        are dropped.  A saved pose graph larger than this system's is met
+        by doubling the graph (up to `db_capacity`) when every mismatched
+        path lies under `graph/`; any other mismatch raises
+        `CheckpointMismatch` at once.  Noise-source states load only into
+        a system on the same device type (the CPU and CUDA generators keep
+        states of different sizes, listed under `rng/`)."""
+        template = self._checkpoint_tree()
+        while True:
+            try:
+                state = load_state(path, template)
+                break
+            except CheckpointMismatch as e:
+                graph_only = all(p.startswith("graph/") for p, _, _ in e.paths)
+                if (self.loop is None or not graph_only
+                        or self._graph_cap >= self.cfg.loop.db_capacity):
+                    raise
+                self._grow_graph()
+                template["graph"] = self.graph
+        self.front.state = state["front"]
+        self.front.frame = state["count"]["frame"]
+        self.front.generator.set_state(state["rng"]["front"])
+        self.correction = state["correction"]
+        for k in self._COUNTERS:
+            setattr(self, k, state["count"][k.lstrip("_")])
+        self._pending = []
+        extras = load_extras(path)
+        dev = self.device
+
+        def poses(t, q) -> list:
+            t, q = torch.from_numpy(t).to(dev), torch.from_numpy(q).to(dev)
+            return [Pose(t[i], q[i]) for i in range(t.shape[0])]
+
+        self._raw_poses = (poses(extras["raw_t"], extras["raw_q"])
+                           if "raw_t" in extras else [])
+        self._node_frames = [int(f) for f in extras.get("node_frames", [])]
+        self._node_raw_cam = (poses(extras["node_raw_t"], extras["node_raw_q"])
+                              if self._node_frames else [])
+        if self.loop is not None:
+            lp = state["loop"]
+            self.loop.db = lp["db"]
+            self.loop.count = lp["count"]
+            self.loop._last_time = lp["last_time"]
+            self.loop._last_loop_time = lp["last_loop_time"]
+            self.loop._last_pos = extras.get("loop_last_pos")
+            self.loop._last_loop_pos = extras.get("loop_last_loop_pos")
+            self.loop.generator.set_state(state["rng"]["loop"])
+            self.graph = state["graph"]
+            self._graph_cap = self.graph.t.shape[0]
+        if self.mapper is not None:
+            m, mp = self.mapper, state["map"]
+            m.map = mp["bank"]
+            m.frames = mp["frames"]
+            m._archived_n = mp["archived_n"]
+            m._occ = (None if mp["occupancy"] < 0
+                      else (torch.tensor(mp["occupancy"]), None))
+            m._archive = ([(extras["map_archive_points"],
+                            extras["map_archive_colors"])]
+                          if "map_archive_points" in extras else [])

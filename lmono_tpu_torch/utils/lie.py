@@ -1,7 +1,6 @@
 """SO(3)/SE(3) operations on quaternions and rotation matrices, in PyTorch.
 
-Port of `lmono_tpu/utils/lie.py` (the part the odometry, estimator and
-system slices use).
+Port of `lmono_tpu/utils/lie.py`.
 
 Conventions
 -----------
@@ -148,6 +147,14 @@ def so3_log_quat(q: torch.Tensor) -> torch.Tensor:
     return k * v
 
 
+def so3_exp_mat(theta: torch.Tensor) -> torch.Tensor:
+    return quat_to_mat(so3_exp_quat(theta))
+
+
+def so3_log_mat(m: torch.Tensor) -> torch.Tensor:
+    return so3_log_quat(mat_to_quat(m))
+
+
 def skew(v: torch.Tensor) -> torch.Tensor:
     """Skew-symmetric matrix [v]_x (reference `SkewSymmetric`)."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
@@ -265,3 +272,12 @@ class Pose(NamedTuple):
 
 def pose_stack(poses: list) -> Pose:
     return Pose(torch.stack([p.t for p in poses]), torch.stack([p.q for p in poses]))
+
+
+def pose_slerp(p0: Pose, p1: Pose, alpha) -> Pose:
+    """Linear/slerp interpolation between two poses (for timestamp alignment)."""
+    alpha = torch.as_tensor(alpha, dtype=p0.t.dtype, device=p0.t.device)
+    t = p0.t + alpha[..., None] * (p1.t - p0.t)
+    dq = quat_mul(quat_conj(p0.q), p1.q)
+    q = quat_mul(p0.q, so3_exp_quat(alpha[..., None] * so3_log_quat(dq)))
+    return Pose(t, quat_normalize(q))

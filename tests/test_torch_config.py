@@ -71,6 +71,10 @@ def test_port_imports_no_jax():
         "lmono_tpu_torch.loop.detector", "lmono_tpu_torch.loop.posegraph",
         "lmono_tpu_torch.ops.brief", "lmono_tpu_torch.pipeline",
         "lmono_tpu_torch.io.sync", "lmono_tpu_torch.utils.timing",
+        "lmono_tpu_torch.io", "lmono_tpu_torch.io.png", "lmono_tpu_torch.io.kitti",
+        "lmono_tpu_torch.io.replay", "lmono_tpu_torch.native", "lmono_tpu_torch.eval",
+        "lmono_tpu_torch.utils", "lmono_tpu_torch.utils.metrics",
+        "lmono_tpu_torch.utils.checkpoint", "lmono_tpu_torch.run_kitti",
     ]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
