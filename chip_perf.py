@@ -3,6 +3,8 @@
 
     python3 chip_perf.py [--root DIR]
     python3 chip_perf.py --capture-loop FILE.npz
+    python3 chip_perf.py --calib-seeds 7,8,9,10 [--calib-fine-times 3,1000]
+    python3 chip_perf.py --calib-capture FILE.npz
 
 Times the port's two hand-written kernels through the entry points that its
 slices call, and takes `torch.profiler` windows of the KITTI-scale
@@ -44,6 +46,14 @@ time, uncorrected camera pose and detection (found, candidate, relative
 pose, refined), every frame's uncorrected laser pose, the corrected
 trajectory and its ATE, and the inputs and output of every loop-lane
 `register` call (K1 inside).
+
+`--calib-seeds` instead runs calib-online (`eval_sweep.run_preset(2, 300)`)
+once per noise seed and fine_times, printing the adoption frame, the
+rotation errors at adoption and at the end, ATE and fps, and saves the
+hand-eye's rotation pairs for a CPU replay through both packages
+(`tests/handeye_replay.py`); `--calib-capture` runs it once and saves each
+frame's estimator inputs (tracks and laser pose) for a CPU replay of both
+packages' estimators (`tests/handeye_replay.py --teacher`).
 
 Prints one line per measurement and the card's name and power limit.
 Needs a CUDA device; imports nothing of JAX.
@@ -485,12 +495,101 @@ def capture_loop(dev, path: str) -> None:
         closures=system.n_loops, ate_m=f"{res['ate']:.6f}")
 
 
+def calib_study(dev, seeds: list, fine_times: list, path: str) -> None:
+    """calib-online's row (`eval_sweep.run_preset(2, 300)`: KITTI 02's
+    preset from the identity extrinsic on the figure-8) for each noise seed
+    g (the pipeline's generator seed g, the sweeps' noise seed 693 + g:
+    seed 7 is `chip_smoke.py`'s run) and each fine_times; the hand-eye's
+    pair ring of each seed (it stops filling at adoption, before fine_times
+    matters) saved in `path` for a CPU replay (`tests/handeye_replay.py`)."""
+    import numpy as np
+
+    from lmono_tpu_torch import eval_sweep
+    from lmono_tpu_torch.io import synthetic as syn
+
+    scene = syn.make_city_scene(device=dev)
+    traj8 = syn.figure8_trajectory(eval_sweep.MODE2_MIN_FRAMES, device=dev)
+    base, noise_seed = eval_sweep.FusedPipeline, eval_sweep.NOISE_SEED
+    made, rings = [], {}
+    try:
+        for ft in fine_times:
+            for g in seeds:
+                class Seeded(base):
+                    def __init__(self, cfg, cam, T_CL=None, device=None, generator=None):
+                        super().__init__(cfg, cam, T_CL, device,
+                                         torch.Generator(device=device).manual_seed(g))
+                        made.append(self)
+
+                eval_sweep.FusedPipeline = Seeded
+                eval_sweep.NOISE_SEED = 693 + g
+                row = eval_sweep.run_preset(2, eval_sweep.MODE2_MIN_FRAMES, scene, traj8,
+                                            traj_excite=traj8, device=dev, fine_times=ft)
+                he = made[-1].state.est.handeye
+                for k in ("q_cam", "q_las", "mask", "q_ex"):
+                    rings[f"{k}_{g}"] = getattr(he, k).cpu().numpy()
+                say("calib-study", fine_times=ft, seed=g,
+                    adoption_frame=row["adoption_frame"],
+                    err_at_adoption_deg=row["handeye_rot_err_at_adoption_deg"],
+                    err_at_end_deg=f"{row['handeye_rot_err_deg']:.6f}",
+                    ate_m=f"{row['ate_m']:.6f}", laser_ate_m=f"{row['laser_ate_m']:.6f}",
+                    fps_before=row["fps_before_adoption"], fps_after=row["fps_after_adoption"],
+                    non_keyframes=row["non_keyframes"])
+    finally:
+        eval_sweep.FusedPipeline, eval_sweep.NOISE_SEED = base, noise_seed
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, seeds=np.array(seeds, np.int64), **rings)
+    say("calib-study", path=path)
+
+
+def calib_capture(dev, path: str) -> None:
+    """calib-online as `chip_smoke.py` runs it, recording what each frame
+    hands the fusion estimator (the tracker's output and the laser pose)
+    into `path`, for a CPU replay of both packages' estimators on the same
+    inputs (`tests/handeye_replay.py --teacher`)."""
+    import numpy as np
+
+    import chip_smoke
+    from lmono_tpu_torch import eval_sweep, fused
+    from lmono_tpu_torch.io import synthetic as syn
+
+    frames = []
+    step = fused.fusion_step
+
+    def recorded(state, track, laser, cfg, count, gumbel=None):
+        frames.append([x.detach().cpu().numpy() for x in (*track, laser.t, laser.q)])
+        return step(state, track, laser, cfg, count, gumbel)
+
+    fused.fusion_step = recorded
+    try:
+        traj8 = syn.figure8_trajectory(chip_smoke.CALIB_FRAMES, device=dev)
+        row = eval_sweep.run_preset(2, chip_smoke.CALIB_FRAMES, syn.make_city_scene(device=dev),
+                                    traj8, traj_excite=traj8, device=dev,
+                                    fine_times=chip_smoke.CALIB_FINE_TIMES)
+    finally:
+        fused.fusion_step = step
+    names = ("ids", "uv", "norm", "velocity", "track_cnt", "alive", "laser_t", "laser_q")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    adopt = row["adoption_frame"]
+    np.savez_compressed(path, adoption_frame=np.int64(-1 if adopt is None else adopt),
+                        **{k: np.stack([f[i] for f in frames]) for i, k in enumerate(names)})
+    say("calib-capture", path=path, frames=len(frames), adoption_frame=row["adoption_frame"],
+        err_at_adoption_deg=row["handeye_rot_err_at_adoption_deg"])
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                     help="checkout whose lmono_tpu_torch is measured")
     ap.add_argument("--capture-loop", metavar="FILE",
                     help="only record system-kitti's graph lane into FILE (.npz)")
+    ap.add_argument("--calib-seeds", metavar="G,G,...",
+                    help="only run calib-online for these noise seeds")
+    ap.add_argument("--calib-fine-times", metavar="N,N,...", default="3,1000",
+                    help="with --calib-seeds: the fine_times values to run")
+    ap.add_argument("--calib-out", metavar="FILE", default="handeye_rings.npz",
+                    help="with --calib-seeds: where the hand-eye rings go (.npz)")
+    ap.add_argument("--calib-capture", metavar="FILE",
+                    help="only record calib-online's estimator inputs into FILE (.npz)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_perf: torch.cuda.is_available() is false")
@@ -505,6 +604,13 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     if a.capture_loop:
         capture_loop(dev, a.capture_loop)
+        return
+    if a.calib_capture:
+        calib_capture(dev, a.calib_capture)
+        return
+    if a.calib_seeds:
+        calib_study(dev, [int(g) for g in a.calib_seeds.split(",")],
+                    [int(n) for n in a.calib_fine_times.split(",")], a.calib_out)
         return
     knn_times(dev)
     lk_times(dev)

@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's four slices through their entry points,
+Drives the port's slices through their entry points,
 `LidarOdometry.process_chunk`, `FeatureTracker.process`,
-`FusedPipeline.process_chunk` and `SlamSystem.process_chunk`, and checks
-every kernel on their paths against its plain PyTorch version:
+`FusedPipeline.process_chunk`, `SlamSystem.process_chunk`, `run_kitti.main`,
+`eval_sweep.run_preset` and the calibration functions, and checks every
+kernel on their paths against its plain PyTorch version:
 
 1. device: the card, its power limit and the toolchain;
 2. build: compiles the CUDA kernels (`lmono_tpu_torch/csrc/knn.cu`, K1, and
@@ -34,8 +35,9 @@ every kernel on their paths against its plain PyTorch version:
    plain KNN call, and (synthetic) the first frames again on the CPU;
 6. tracker-synthetic / tracker-kitti: the KLT front-end at
    `synthetic_config()` (512×256, 96 slots, 3 levels) and
-   `kitti_scale_config()` (1241×376, 150 slots, 4 levels), 120 frames
-   rendered on the card along the circuit: exactly 1 K2 launch per frame
+   `kitti_scale_config()` (1241×376, 150 slots, 4 levels), TRACK_FRAMES
+   (60, cut from 120 for the script's time) frames rendered on the card
+   along the circuit: exactly 1 K2 launch per frame
    and no plain LK call, median frame-to-frame track error
    against the simulator's geometry under 0.6 px, mean tracks carried at
    least half the slots, frames/s and peak memory, and (synthetic) the
@@ -56,7 +58,8 @@ every kernel on their paths against its plain PyTorch version:
    (the fused step, the dense colored map, the loop lane: BRIEF place
    recognition, PnP verification, LiDAR refinement of closures through K1,
    the pose graph), loop and map on, the estimator seeded with the rig's
-   extrinsic, 340 frames of the circuit (a lap of 251 and the revisit)
+   extrinsic, 340 frames of the circuit (a lap of 251 and the revisit;
+   system-synthetic 300, a 49-frame revisit, for the script's time)
    generated on the card chunk by chunk, in chunks of 20, the first chunk
    excluded from fps, as `bench.py` runs the system row (synthetic) and its
    kitti-scale row (full widths; its 1000 frames cut to these 340 for
@@ -86,6 +89,38 @@ every kernel on their paths against its plain PyTorch version:
    checkpoints, runs 30-44; a fresh system loaded from the checkpoint runs
    30-44 again: its poses within 1 mm / 1e-4 rad of the first's (bitwise
    equality reported), closures, keyframes, DB count and map points equal.
+10. calib-online: online LiDAR–camera extrinsic calibration from identity.
+   `eval_sweep.run_preset` runs KITTI 02's preset, `kitti_config(2)`
+   (estimate_laser 2, 100 features; 64×1024 sweeps with 0.01 m noise,
+   1241×376 images) with its fine_times 3 replaced by the 1000 with which
+   tests/test_fusion.py gates the calibration, through
+   `FusedPipeline.process_chunk`
+   over CALIB_FRAMES frames of the figure-8 made on the card chunk by
+   chunk: the hand-eye converges and is adopted at under 15° of rotation
+   error, fusion initializes, the window extrinsic ends under 3°
+   (tests/test_fusion.py's gates); fused ATE beside the raw laser ATE, and
+   frames/s, before and after adoption, LM attempts, read-backs and
+   non-keyframes reported; exactly 2 K1 launches per outer iteration and 1
+   K2 launch per frame, no plain call.
+11. calib-intrinsic: a calibration session at 1920×1200.  intrinsic_calib's
+   6×9 board in 16 tilted views is rendered on the card through each
+   model's own lift (2×2 samples a pixel, a lens blur, sensor noise) for
+   `hk_config()`'s pinhole with radtan distortion, a MEI and an
+   equidistant camera; `find_chessboard_corners` finds every view's
+   corners on the card, each within 2.5 px of the truth in grid order;
+   `calibrate_pinhole` (pinhole) and `calibrate_camera` (each model) solve
+   on the card to under 0.5 px RMSE with the focal length (MEI: γ/(1+ξ),
+   and its principal point within 5 px) within 3% of the truth, and a CPU
+   run from the same corners gives the same intrinsics within 1e-3
+   relative, corners reprojected within 0.01 px.  `pinhole_full` and
+   `scaramuzza` lift and project every pixel: the round trip within 1e-3
+   px in float32, and equal to the CPU's within 1e-4 px in float64 (in
+   float32 one ulp of a coordinate past 1024 px is 1.2e-4 px; that
+   difference is reported).  Seconds for detection and for
+   each solve reported.
+
+The plain versions and library calls that take over YARD_MS a call are
+timed over YARD_REPS runs of YARD_CALLS calls (the kernels over 20 × 5).
 
 Prints one JSON line of kernel results (time, launches on system-kitti and
 launches per frame on every path, bound, plain and library times, and K1's
@@ -98,6 +133,7 @@ CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 from concurrent.futures import ThreadPoolExecutor
 import statistics
@@ -112,6 +148,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 N_FRAMES = 120
 PIPE_FRAMES = 60          # the pipeline phases, cut from 120 for the time budget
 SYS_FRAMES = 340          # bench.py's system row: a lap of 251 and the revisit
+SYS_SYN_FRAMES = 300      # system-synthetic, cut for the script's time
+TRACK_FRAMES = 60         # the tracker phases, cut from 120 for the script's time
 SYS_ATE_GATE_M = 0.6      # bench.py:233-236
 SYS_RAW_FACTOR = 1.05
 CHUNK = 20
@@ -139,6 +177,10 @@ CPU_ATOL_T, CPU_ATOL_Q = 1e-2, 1e-3
 DRIFT_LENGTHS_M = (20.0, 40.0, 60.0, 80.0)  # a 120-frame run covers 96 m
 TIMING_CALLS = 20
 TIMING_REPS = 5
+# the plain versions and library calls over YARD_MS a call are timed over
+# fewer calls (the kernels keep 20 × 5)
+YARD_MS = 10.0
+YARD_CALLS, YARD_REPS = 3, 3
 # published peaks of one H100 SXM at 700 W (dense f32 outside the tensor
 # cores, HBM3), for bounds and roofline shares
 PEAK_F32_FLOPS = 67e12
@@ -179,6 +221,43 @@ RESUME_AT, RESUME_END = 30, 45
 RESUME_ATOL_M, RESUME_ATOL_RAD = 1e-3, 1e-4
 REGRID_AGREE = 0.99           # frame 0's cells whose range equals the simulator's
 REGRID_ATOL_M = 1e-4
+# calib-online: kitti_config(2) (estimate_laser 2) from the identity
+# extrinsic on the figure-8, as eval_sweep runs KITTI 02's preset; the gates
+# are tests/test_fusion.py:214,226,228's, and so is CALIB_FINE_TIMES: that
+# test keeps the extrinsic refinement live (fine_times 1000), where the
+# preset's 3 freezes the extrinsic three solves after adoption, at the
+# hand-eye's 4-15° identification spread (PERF.md §6)
+CALIB_FRAMES = 300
+CALIB_FINE_TIMES = 1000
+HANDEYE_ADOPT_GATE_DEG = 15.0
+EXTRINSIC_END_GATE_DEG = 3.0
+# calib-intrinsic: intrinsic_calib's default board (6×9 inner corners, 3 cm
+# squares) in BOARD_VIEWS tilted views at 1920×1200, detected and
+# calibrated on the card; gates from tests/test_calibration.py
+BOARD_ROWS, BOARD_COLS, BOARD_SQ = 6, 9, 0.03
+BOARD_PX = 520.0              # the board's width in pixels at the view centre
+# (tilt about x, tilt about y, yaw in degrees; centre offset in normalized
+# image coordinates): tilts about mixed axes, as Zhang's method needs,
+# within the reference detector's tested range (tilt to 40°, yaw to 20°,
+# tests/test_calibration.py): its X-junction kernel is axis-aligned, and a
+# board yawed by ~40° loses its corner response
+BOARD_VIEWS = [(4, 30, 5, -0.20, -0.12), (10, -30, -8, 0.18, 0.10),
+               (30, 6, 14, 0.05, -0.18), (-30, -8, 12, -0.08, 0.16),
+               (-24, 24, -12, 0.22, -0.05), (26, -22, 9, -0.22, 0.04),
+               (18, 18, 0, 0.0, 0.0), (-18, -18, 10, 0.12, 0.14),
+               (0, 30, -10, -0.15, 0.18), (30, 0, 12, 0.15, -0.15),
+               (-12, 26, 15, -0.05, -0.20), (20, -26, -15, 0.20, 0.18),
+               (-30, 12, 3, -0.18, -0.10), (14, 14, -12, 0.25, 0.0),
+               (-20, -24, -4, -0.22, 0.05), (26, 20, 8, 0.0, 0.20)]
+SENSOR_NOISE = 0.5 / 255
+CORNER_GATE_PX = 2.5          # every detected corner near its true one
+CALIB_RMSE_GATE_PX = 0.5
+FOCAL_GATE = 0.03             # the reference's 12 px at f = 400
+MEI_CENTRE_GATE_PX = 5.0      # the reference's MEI gate
+CARD_CPU_RTOL = 1e-3          # the card's intrinsics against a CPU run
+CARD_CPU_REPROJ_PX = 0.01     # and its corners reprojected, and its RMSE
+ROUNDTRIP_GATE_PX = 1e-3      # lift then project, every pixel
+ROUNDTRIP_CPU_PX = 1e-4       # the card's round trip against the CPU's (float64)
 
 
 def say(phase: str, **kv) -> None:
@@ -223,23 +302,34 @@ def build_phase() -> None:
                 print("  ptxas: " + line.strip(), flush=True)
 
 
-def _median_ms(fn) -> float:
-    """Median ms per call over TIMING_REPS runs of TIMING_CALLS back-to-back
-    calls, each run between two CUDA events (so host launch overhead is
-    hidden behind the queued work wherever the work is the longer)."""
-    for _ in range(3):
+def _median_ms(fn, calls: int = TIMING_CALLS, reps: int = TIMING_REPS,
+               warmup: int = 3) -> float:
+    """Median ms per call over `reps` runs of `calls` back-to-back calls,
+    each run between two CUDA events (so host launch overhead is hidden
+    behind the queued work wherever the work is the longer)."""
+    for _ in range(warmup):
         fn()
     times = []
-    for _ in range(TIMING_REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(TIMING_CALLS):
+        for _ in range(calls):
             fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / TIMING_CALLS)
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def _yardstick_ms(fn) -> float:
+    """`_median_ms` of a plain version or a library call: one call first,
+    and over YARD_MS a call, YARD_REPS runs of YARD_CALLS calls after it
+    (the cdist yardstick alone took ~34 s at 20 × 5)."""
+    once = _median_ms(fn, calls=1, reps=1, warmup=0)
+    if once > YARD_MS:
+        return _median_ms(fn, YARD_CALLS, YARD_REPS, warmup=0)
+    return _median_ms(fn)
 
 
 def _knn_bound_ms(Q: int, valid: int, M: int, k: int) -> tuple[float, str]:
@@ -306,8 +396,8 @@ def knn_phase(dev) -> dict:
         valid = int(mask.sum())
         bound, by = _knn_bound_ms(Q, valid, M, KNN_K)
         k_ms = _median_ms(lambda: knn_cuda(q, t, mask, KNN_K))
-        p_ms = _median_ms(lambda: knn_plain(q, t, mask, KNN_K))
-        l_ms = _median_ms(lambda: _knn_library(q, t, mask, KNN_K))
+        p_ms = _yardstick_ms(lambda: knn_plain(q, t, mask, KNN_K))
+        l_ms = _yardstick_ms(lambda: _knn_library(q, t, mask, KNN_K))
         plan = knn_plan(Q, M, _sms(dev))
         say("knn", Q=Q, M=M, valid=valid, max_abs_err=err,
             plan=f"R{plan.R}/C{plan.cluster}/W{plan.warps}/grid{plan.grid}",
@@ -484,7 +574,7 @@ def lk_phase(dev) -> dict:
             if pallas:
                 k_ms = _median_ms(lambda: lk_level_cuda(
                     *args, LK_PATCH, LK_ITERS, True, thresh))
-                p_ms = _median_ms(lambda: lk_level_plain(
+                p_ms = _yardstick_ms(lambda: lk_level_plain(
                     *args, LK_PATCH, LK_ITERS, True))
                 bound, by = _lk_bound_ms(
                     [(H, W, True, pts)] * 3 + [(H, W, True, p_k)], N,
@@ -525,7 +615,7 @@ def lk_phase(dev) -> dict:
         flow = (p_k - pts)[both].median(0).values.tolist()
         max_err = max(max_err, err)
         k_ms = _median_ms(lambda: track_fb_cuda(*fb))
-        p_ms = _median_ms(lambda: track_fb_plain(*args, **kw))
+        p_ms = _yardstick_ms(lambda: track_fb_plain(*args, **kw))
         bound, by = _fb_bound_ms(pyr0, pyr1, pts, mask, pt1, ok1, back)
         say("lk-fb", H=H, W=W, levels=L, N=N, ok=int(ok_k.sum()),
             ok_agree=f"{agree:.4f}", max_abs_err_px=err,
@@ -670,9 +760,9 @@ def tracker_phase(name: str, cfg, dev, seed: int, compare_cpu: bool) -> dict:
     cam_cfg, tcfg = cfg.camera, cfg.tracker
     H, W = cam_cfg.height, cam_cfg.width
     scene = syn.make_city_scene(device=dev)
-    traj = syn.circuit_trajectory(N_FRAMES, device=dev)
+    traj = syn.circuit_trajectory(TRACK_FRAMES, device=dev)
     T_LC = syn.synthetic_T_CL(device=dev).inverse()
-    poses = [Pose(traj.t[i], traj.q[i]).compose(T_LC) for i in range(N_FRAMES)]
+    poses = [Pose(traj.t[i], traj.q[i]).compose(T_LC) for i in range(TRACK_FRAMES)]
     frames = [syn.render_camera(scene, p, cam_cfg) for p in poses]
     torch.cuda.synchronize()
     cam = camera_from_config(cam_cfg)
@@ -703,13 +793,14 @@ def tracker_phase(name: str, cfg, dev, seed: int, compare_cpu: bool) -> dict:
     med = float(errs.median())
     p90 = float(torch.quantile(errs, 0.9))
     mean_carried = float(carried.float().mean())
-    fps = (N_FRAMES - TRACK_WARMUP) / dt
-    say(name, frames=N_FRAMES, size=f"{W}x{H}", slots=tcfg.max_features,
+    fps = (TRACK_FRAMES - TRACK_WARMUP) / dt
+    say(name, frames=TRACK_FRAMES, note="cut from 120 frames for the script's time",
+        size=f"{W}x{H}", slots=tcfg.max_features,
         levels=tcfg.pyramid_levels, fps=f"{fps:.3f}", median_err_px=f"{med:.4f}",
         p90_err_px=f"{p90:.4f}", tracks_scored=errs.numel(),
         mean_carried=f"{mean_carried:.2f}", min_carried=int(carried.min()),
         lk_launches=launches, lk_plain_calls=plain_calls, peak_mem_bytes=peak)
-    want = N_FRAMES                      # one fused launch per track_fb
+    want = TRACK_FRAMES                      # one fused launch per track_fb
     if launches != want:
         raise AssertionError(f"{name}: {launches} K2 launches, expected {want}")
     if plain_calls != 0:
@@ -739,7 +830,7 @@ def tracker_phase(name: str, cfg, dev, seed: int, compare_cpu: bool) -> dict:
             raise AssertionError(f"{name}: CUDA and CPU trackers differ "
                                  f"(alive {worst_alive}, uv {worst_uv} px)")
     return {"launches": launches, "fps": fps, "median_err": med,
-            "per_frame": launches / N_FRAMES}
+            "per_frame": launches / TRACK_FRAMES}
 
 
 def _extrinsic_error(ex_t, ex_q, T_CL) -> tuple[float, float]:
@@ -926,8 +1017,9 @@ def _closure_errors(system, traj, T_CL) -> dict:
             "w": g.loop_w[:L].cpu(), "on": g.loop_mask[:L].cpu()}
 
 
-def system_phase(name: str, cfg, dev, seed: int, observe=None) -> dict:
-    """`SlamSystem.process_chunk` with loop and map on over SYS_FRAMES
+def system_phase(name: str, cfg, dev, seed: int, observe=None,
+                 n_frames: int = SYS_FRAMES) -> dict:
+    """`SlamSystem.process_chunk` with loop and map on over n_frames
     frames made on the card chunk by chunk (only `process_chunk` is on the
     fps clock), the estimator seeded with the rig's extrinsic, as
     `bench.py:bench_system` / `bench_kitti_scale` run the JAX package.
@@ -947,8 +1039,8 @@ def system_phase(name: str, cfg, dev, seed: int, observe=None) -> dict:
 
     T_CL = synthetic_T_CL(device=dev)
     cfg = cfg.replace(laser_to_camera=tuple(T_CL.to_mat4().reshape(-1).tolist()))
-    make, traj = _chunk_maker(cfg.lidar, dev, seed, SYS_FRAMES, camera=cfg.camera)
-    n_chunks = SYS_FRAMES // CHUNK
+    make, traj = _chunk_maker(cfg.lidar, dev, seed, n_frames, camera=cfg.camera)
+    n_chunks = n_frames // CHUNK
     torch.cuda.reset_peak_memory_stats()
     system = SlamSystem(cfg, device=dev)
     loop_knn = 0
@@ -988,7 +1080,7 @@ def system_phase(name: str, cfg, dev, seed: int, observe=None) -> dict:
     plain = (knn_mod.knn_plain_calls, lk_mod.lk_plain_calls)
     peak = torch.cuda.max_memory_allocated()
 
-    if est.t.shape != (SYS_FRAMES, 3) or est.q.shape != (SYS_FRAMES, 4):
+    if est.t.shape != (n_frames, 3) or est.q.shape != (n_frames, 4):
         raise AssertionError(f"{name}: trajectory shapes {est.t.shape}, {est.q.shape}")
     if not (torch.isfinite(est.t).all() and torch.isfinite(est.q).all()):
         raise AssertionError(f"{name}: non-finite poses")
@@ -1002,9 +1094,11 @@ def system_phase(name: str, cfg, dev, seed: int, observe=None) -> dict:
     n_refine = max(1, (cfg.loop.refine_iters + 1) // 2)
     odometry_knn = knn_launches - loop_knn
     timer = system.timer.summary()
-    say(name, frames=SYS_FRAMES, note="bench.py's kitti-scale row runs 1000 frames; "
+    say(name, frames=n_frames, note="bench.py's kitti-scale row runs 1000 frames; "
         "cut to 340 (a lap and the revisit) for time" if name == "system-kitti" else
-        "bench.py's system row", fps=f"{fps:.3f}", ate_m=f"{ate:.6f}",
+        f"bench.py's system row, cut from {SYS_FRAMES} to {n_frames} frames (a lap "
+        f"and a {n_frames - 251}-frame revisit) for the script's time"
+        if n_frames != SYS_FRAMES else "bench.py's system row", fps=f"{fps:.3f}", ate_m=f"{ate:.6f}",
         raw_ate_m=f"{ate_raw:.6f}",
         within_raw_x1_05=bool(ate <= ate_raw * SYS_RAW_FACTOR), closures=system.n_loops,
         refined_closures=int((err["w"] == system.LOOP_W_REFINED).sum()),
@@ -1020,8 +1114,8 @@ def system_phase(name: str, cfg, dev, seed: int, observe=None) -> dict:
         knn_launches=knn_launches, loop_lane_knn_launches=loop_knn,
         odometry_knn_launches=odometry_knn,
         loop_knn_per_keyframe=f"{loop_knn / max(kfs, 1):.3f}",
-        knn_per_frame=f"{knn_launches / SYS_FRAMES:.3f}", lk_launches=lk_launches,
-        lk_per_frame=f"{lk_launches / SYS_FRAMES:.3f}",
+        knn_per_frame=f"{knn_launches / n_frames:.3f}", lk_launches=lk_launches,
+        lk_per_frame=f"{lk_launches / n_frames:.3f}",
         knn_plain_calls=plain[0], lk_plain_calls=plain[1], peak_mem_bytes=peak,
         stage_seconds=",".join(f"{k}:{v['total_s']:.2f}" for k, v in timer.items()))
     if not ate < SYS_ATE_GATE_M:
@@ -1034,19 +1128,19 @@ def system_phase(name: str, cfg, dev, seed: int, observe=None) -> dict:
         raise AssertionError(f"{name}: loop closures degraded ATE: {ate} vs raw {ate_raw}")
     if system.n_loops < 1:
         raise AssertionError(f"{name}: no loop closed on the revisit")
-    if lk_launches != SYS_FRAMES:
-        raise AssertionError(f"{name}: {lk_launches} K2 launches, expected {SYS_FRAMES}")
-    if odometry_knn != 2 * n_outer * SYS_FRAMES:
+    if lk_launches != n_frames:
+        raise AssertionError(f"{name}: {lk_launches} K2 launches, expected {n_frames}")
+    if odometry_knn != 2 * n_outer * n_frames:
         raise AssertionError(f"{name}: {odometry_knn} K1 launches outside the loop lane, "
-                             f"expected {2 * n_outer * SYS_FRAMES}")
+                             f"expected {2 * n_outer * n_frames}")
     if kfs < 1 or loop_knn != 2 * n_refine * kfs:
         raise AssertionError(f"{name}: {loop_knn} K1 launches in the loop lane for "
                              f"{kfs} processed keyframes, expected {2 * n_refine} each")
     if plain != (0, 0):
         raise AssertionError(f"{name}: {plain} plain KNN and LK calls on CUDA")
     return {"fps": fps, "ate": ate, "knn_launches": knn_launches,
-            "lk_launches": lk_launches, "knn_per_frame": knn_launches / SYS_FRAMES,
-            "lk_per_frame": lk_launches / SYS_FRAMES,
+            "lk_launches": lk_launches, "knn_per_frame": knn_launches / n_frames,
+            "lk_per_frame": lk_launches / n_frames,
             "loop_knn_per_keyframe": loop_knn / kfs}
 
 
@@ -1246,6 +1340,301 @@ def kitti_files_phase(dev, seed: int, chunked_fps=None) -> dict:
             "loop_knn_per_keyframe": counts["knn"] / max(kfs, 1)}
 
 
+def calib_online_phase(dev) -> dict:
+    """KITTI 02's preset (`kitti_config(2)`: estimate_laser 2, 100 features,
+    full widths) from the identity extrinsic on the figure-8 through
+    `eval_sweep.run_preset`, CALIB_FRAMES frames staged on the card chunk by
+    chunk, the refinement kept live (CALIB_FINE_TIMES): the hand-eye
+    converges and is adopted, the window refines the extrinsic, with K1 and
+    K2 on the path."""
+    from lmono_tpu_torch import eval_sweep
+    from lmono_tpu_torch.config import kitti_config
+    from lmono_tpu_torch.io import synthetic as syn
+    from lmono_tpu_torch.ops import knn as knn_mod
+    from lmono_tpu_torch.ops import lk as lk_mod
+    from lmono_tpu_torch.ops.cuda import knn as knn_cuda_mod
+    from lmono_tpu_torch.ops.cuda import lk as lk_cuda_mod
+
+    t_phase = time.perf_counter()
+    cfg = kitti_config(2)
+    scene = syn.make_city_scene(device=dev)
+    traj8 = syn.figure8_trajectory(CALIB_FRAMES, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    knn_cuda_mod.knn_kernel_launches = lk_cuda_mod.lk_kernel_launches = 0
+    knn_mod.knn_plain_calls = lk_mod.lk_plain_calls = 0
+    row = eval_sweep.run_preset(2, CALIB_FRAMES, scene, traj8, traj_excite=traj8,
+                                device=dev, fine_times=CALIB_FINE_TIMES)
+    torch.cuda.synchronize()
+    knn_launches = knn_cuda_mod.knn_kernel_launches
+    lk_launches = lk_cuda_mod.lk_kernel_launches
+    plain = (knn_mod.knn_plain_calls, lk_mod.lk_plain_calls)
+    n = row["frames"]
+    n_outer = max(1, (cfg.lidar.scan_to_map_iters + 1) // 2)
+    say("calib-online", config="kitti_config(2) from the identity extrinsic, figure-8, "
+        f"fine_times {CALIB_FINE_TIMES} as tests/test_fusion.py gates it (the preset: "
+        f"{cfg.estimator.fine_times})",
+        lidar=f"{cfg.lidar.num_rings}x{cfg.lidar.horiz_res}",
+        image=f"{cfg.camera.width}x{cfg.camera.height}",
+        **{k: (f"{v:.6f}" if isinstance(v, float) else v) for k, v in row.items()},
+        knn_launches=knn_launches, lk_launches=lk_launches,
+        knn_per_frame=f"{knn_launches / n:.3f}", lk_per_frame=f"{lk_launches / n:.3f}",
+        knn_plain_calls=plain[0], lk_plain_calls=plain[1],
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    if n != CALIB_FRAMES:
+        raise AssertionError(f"calib-online: {n} frames run, expected {CALIB_FRAMES}")
+    for k in ("ate_m", "laser_ate_m"):
+        if not math.isfinite(row[k]):
+            raise AssertionError(f"calib-online: {k} is {row[k]}")
+    if not row["handeye_converged"]:
+        raise AssertionError("calib-online: the hand-eye did not converge")
+    if not row["handeye_rot_err_at_adoption_deg"] < HANDEYE_ADOPT_GATE_DEG:
+        raise AssertionError(f"calib-online: hand-eye error at adoption "
+                             f"{row['handeye_rot_err_at_adoption_deg']} deg")
+    if not row["initialized"]:
+        raise AssertionError("calib-online: fusion did not initialize")
+    if not row["handeye_rot_err_deg"] < EXTRINSIC_END_GATE_DEG:
+        raise AssertionError(f"calib-online: the window extrinsic's rotation error "
+                             f"{row['handeye_rot_err_deg']} deg at the end")
+    if knn_launches != 2 * n_outer * n or lk_launches != n:
+        raise AssertionError(f"calib-online: {knn_launches} K1 and {lk_launches} K2 "
+                             f"launches, expected {2 * n_outer * n} and {n}")
+    if plain != (0, 0):
+        raise AssertionError(f"calib-online: {plain} plain KNN and LK calls on CUDA")
+    return {"row": row, "knn_per_frame": knn_launches / n, "lk_per_frame": lk_launches / n,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def _board_pose(view, f_px: float, dev):
+    """Camera-from-board pose of one BOARD_VIEWS entry for a camera of focal
+    length f_px at the view centre: the board's centre at the depth where
+    it spans BOARD_PX pixels, offset in normalized image coordinates."""
+    from lmono_tpu_torch.utils.lie import Pose, quat_to_mat, so3_exp_quat
+
+    tx, ty, yaw, ox, oy = view
+    q = so3_exp_quat(torch.deg2rad(torch.tensor([tx, ty, yaw], dtype=torch.float32,
+                                                device=dev)))
+    R = quat_to_mat(q)
+    width = (BOARD_COLS + 1) * BOARD_SQ
+    d = f_px * width / BOARD_PX
+    centre = torch.tensor([width / 2, (BOARD_ROWS + 1) * BOARD_SQ / 2, 0.0], device=dev)
+    t = torch.tensor([ox * d, oy * d, d], device=dev) - R @ centre
+    return Pose(t, q), R
+
+
+def _render_board(cam, view, f_px: float, dev, generator: torch.Generator):
+    """A view of the board through `cam`, as a sensor sees it: each pixel the
+    mean of 2×2 samples, each sample lifted by the model's own lift and cut
+    with the board's plane (checker squares 0 and 1, 0.6 off the board),
+    then a lens blur (`gauss_blur5`, σ ≈ 1 px) and sensor noise of
+    SENSOR_NOISE (half an 8-bit level).  Without the blur and the noise the
+    image takes few distinct values, and the detector's X-junction response
+    ties on neighbouring pixels, which then crowd true corners out of its
+    rows·cols + 10 candidates.
+    Returns (image (H, W), the inner corners projected by `space_to_plane`,
+    row-major (rows·cols, 2))."""
+    from lmono_tpu_torch.ops.image import gauss_blur5
+
+    pose, R = _board_pose(view, f_px, dev)
+    yy, xx = torch.meshgrid(torch.arange(cam.height, dtype=torch.float32, device=dev),
+                            torch.arange(cam.width, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    n = R[:, 2]
+    img = torch.zeros_like(xx)
+    for dx, dy in ((-0.25, -0.25), (0.25, -0.25), (-0.25, 0.25), (0.25, 0.25)):
+        ray = cam.lift_projective(torch.stack([xx + dx, yy + dy], -1))
+        s = torch.dot(n, pose.t) / (ray @ n)
+        pb = (s[..., None] * ray - pose.t) @ R               # board coordinates
+        bx, by = pb[..., 0], pb[..., 1]
+        inside = ((s > 0) & (bx > 0) & (bx < (BOARD_COLS + 1) * BOARD_SQ)
+                  & (by > 0) & (by < (BOARD_ROWS + 1) * BOARD_SQ))
+        checker = torch.remainder(torch.floor(bx / BOARD_SQ) + torch.floor(by / BOARD_SQ), 2)
+        img += 0.25 * torch.where(inside, checker, torch.full_like(checker, 0.6))
+    img = gauss_blur5(img)
+    img += SENSOR_NOISE * torch.randn(img.shape, generator=generator, device=dev)
+    rr, cc = torch.meshgrid(torch.arange(1, BOARD_ROWS + 1, device=dev),
+                            torch.arange(1, BOARD_COLS + 1, device=dev), indexing="ij")
+    X = torch.stack([cc.reshape(-1) * BOARD_SQ, rr.reshape(-1) * BOARD_SQ,
+                     torch.zeros(BOARD_ROWS * BOARD_COLS, device=dev)], -1)
+    return img, cam.space_to_plane(pose.apply(X))
+
+
+def _pinhole_params(r) -> dict:
+    """`calibrate_pinhole`'s result as `calibrate_camera`'s parameter dict."""
+    return dict(fx=r.fx, fy=r.fy, cx=r.cx, cy=r.cy, k1=float(r.dist[0]),
+                k2=float(r.dist[1]), p1=float(r.dist[2]), p2=float(r.dist[3]))
+
+
+def _focals(model: str, p: dict) -> tuple:
+    """The observable focal lengths (px) of a calibration: MEI's γ/(1 + ξ),
+    since γ and ξ trade off against each other over a board's field of view
+    (tests/test_calibration.py gates MEI by reprojection and principal point
+    only)."""
+    if model == "pinhole":
+        return p["fx"], p["fy"]
+    if model == "mei":
+        return p["gamma1"] / (1 + p["xi"]), p["gamma2"] / (1 + p["xi"])
+    return p["mu"], p["mv"]
+
+
+_INTRINSICS = {"pinhole": ("fx", "fy", "cx", "cy"),
+               "mei": ("gamma1", "gamma2", "u0", "v0", "xi"),
+               "equidistant": ("mu", "mv", "u0", "v0")}
+
+
+def _card_vs_cpu(model: str, card, cpu, obj: torch.Tensor) -> tuple[float, float]:
+    """Two calibrations of the same corners, (params, view poses) each: the
+    largest relative difference of their intrinsics, and the largest
+    difference (px) between the board corners each reprojects.  The
+    distortion coefficients are compared through the reprojection: they are
+    weakly observable one by one (the θ-polynomial's terms trade off)."""
+    from lmono_tpu_torch.camera.calibration import _MODEL_THETA, _project
+    from lmono_tpu_torch.utils.lie import Pose
+
+    rel = max(abs(card[0][k] - cpu[0][k]) / abs(cpu[0][k]) for k in _INTRINSICS[model])
+    obj3 = torch.cat([obj, torch.zeros_like(obj[:, :1])], -1).cpu()
+    uv = []
+    for params, poses in (card, cpu):
+        P = Pose(poses.t.cpu()[:, None], poses.q.cpu()[:, None]).apply(obj3)
+        uv.append(_project(model, [params[k] for k in _MODEL_THETA[model]], P))
+    return rel, float((uv[0] - uv[1]).abs().max())
+
+
+def _roundtrip(cam, dev, dtype=torch.float32):
+    """Every pixel of the image lifted and projected again by `cam` on
+    `dev` in `dtype`: (largest round-trip error in px, the projected
+    pixels)."""
+    yy, xx = torch.meshgrid(torch.arange(cam.height, dtype=dtype, device=dev),
+                            torch.arange(cam.width, dtype=dtype, device=dev),
+                            indexing="ij")
+    uv = torch.stack([xx, yy], -1)
+    back = cam.space_to_plane(cam.lift_projective(uv))
+    return float((back - uv).abs().max()), back
+
+
+def calib_intrinsic_phase(dev) -> dict:
+    """A calibration session at 1920×1200: the board rendered on the card
+    through a pinhole with radtan distortion (`hk_config()`'s camera), a
+    MEI and an equidistant camera; corners detected on the card
+    (`find_chessboard_corners`), then `calibrate_pinhole` and
+    `calibrate_camera` on the card and again on the CPU from the same
+    corners; `pinhole_full` and `scaramuzza` lift and project every pixel."""
+    from lmono_tpu_torch.camera import (calibrate_camera, calibrate_pinhole,
+                                        camera_from_config, equidistant_camera,
+                                        find_chessboard_corners, mei_camera,
+                                        pinhole_full_camera, scaramuzza_camera)
+    from lmono_tpu_torch.config import hk_config
+
+    t_phase = time.perf_counter()
+    W, H = 1920, 1200
+    hk = hk_config().camera
+    cameras = [
+        ("pinhole", camera_from_config(hk), hk.fx),
+        ("mei", mei_camera(W, H, gamma1=1200.0, gamma2=1190.0, u0=965.0, v0=605.0,
+                           xi=0.9, k1=-0.1, k2=0.02), 1200.0 / 1.9),
+        ("equidistant", equidistant_camera(W, H, mu=620.0, mv=615.0, u0=962.0,
+                                           v0=598.0, k2=0.01, k3=-0.002), 620.0)]
+    g = torch.stack(torch.meshgrid(torch.arange(BOARD_COLS), torch.arange(BOARD_ROWS),
+                                   indexing="xy"), -1).reshape(-1, 2).double() * BOARD_SQ
+    obj = (g - g.mean(0)).float()
+    out = {}
+    for model, cam, f_px in cameras:
+        views, worst, det_s = [], 0.0, 0.0
+        gen = torch.Generator(device=dev).manual_seed(11)
+        for view in BOARD_VIEWS:
+            img, true_uv = _render_board(cam, view, f_px, dev, gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            det, ok = find_chessboard_corners(img, BOARD_ROWS, BOARD_COLS)
+            torch.cuda.synchronize()
+            det_s += time.perf_counter() - t0
+            err = min(float((det - true_uv).norm(dim=-1).max()),
+                      float((det - true_uv.flip(0)).norm(dim=-1).max()))
+            if not ok or not err < CORNER_GATE_PX:
+                raise AssertionError(f"calib-intrinsic {model}: view {view} detected "
+                                     f"ok={ok}, corners {err:.3f} px from the truth "
+                                     f"in grid order")
+            worst = max(worst, err)
+            views.append(det)
+        img_xy = torch.stack(views)
+        solves = []
+        if model == "pinhole":
+            t0 = time.perf_counter()
+            r = calibrate_pinhole(obj.to(dev), img_xy)
+            t1 = time.perf_counter()
+            rc = calibrate_pinhole(obj, img_xy.cpu())
+            solves.append(("calibrate_pinhole", _pinhole_params(r), r.view_poses,
+                           r.reproj_rmse, _pinhole_params(rc), rc.view_poses,
+                           rc.reproj_rmse, t1 - t0))
+        t0 = time.perf_counter()
+        r = calibrate_camera(model, obj.to(dev), img_xy, image_size=(W, H))
+        t1 = time.perf_counter()
+        rc = calibrate_camera(model, obj, img_xy.cpu(), image_size=(W, H))
+        solves.append((f"calibrate_camera({model})", r.params, r.view_poses,
+                       r.reproj_rmse, rc.params, rc.view_poses, rc.reproj_rmse, t1 - t0))
+        for name, p, poses, rmse, pc, poses_c, rmse_cpu, secs in solves:
+            focal, truth = _focals(model, p), _focals(model, cam.params)
+            focal_err = max(abs(a - b) / b for a, b in zip(focal, truth))
+            centre = ("cx", "cy") if model == "pinhole" else ("u0", "v0")
+            centre_err = max(abs(p[k] - cam.params[k]) for k in centre)
+            intr_rel, reproj_px = _card_vs_cpu(model, (p, poses), (pc, poses_c), obj)
+            say("calib-intrinsic", model=model, solve=name, views=len(BOARD_VIEWS),
+                corners=BOARD_ROWS * BOARD_COLS, image=f"{W}x{H}",
+                max_corner_err_px=f"{worst:.4f}", detect_seconds=f"{det_s:.3f}",
+                solve_seconds=f"{secs:.3f}", rmse_px=f"{rmse:.6f}",
+                cpu_rmse_px=f"{rmse_cpu:.6f}", focal_rel_err=f"{focal_err:.6f}",
+                centre_err_px=f"{centre_err:.3f}",
+                card_vs_cpu_intrinsics_rel=f"{intr_rel:.3e}",
+                card_vs_cpu_reprojection_px=f"{reproj_px:.3e}",
+                params=",".join(f"{k}:{v:.6g}" for k, v in p.items()),
+                cpu_params=",".join(f"{k}:{v:.6g}" for k, v in pc.items()))
+            if not rmse < CALIB_RMSE_GATE_PX:
+                raise AssertionError(f"calib-intrinsic {name}: RMSE {rmse} px")
+            if not focal_err < FOCAL_GATE:
+                raise AssertionError(f"calib-intrinsic {name}: focal {focal_err:.4%} "
+                                     f"from the truth")
+            if model == "mei" and not centre_err < MEI_CENTRE_GATE_PX:
+                raise AssertionError(f"calib-intrinsic {name}: principal point "
+                                     f"{centre_err} px from the truth")
+            if not (intr_rel <= CARD_CPU_RTOL and reproj_px <= CARD_CPU_REPROJ_PX
+                    and abs(rmse - rmse_cpu) <= CARD_CPU_REPROJ_PX):
+                raise AssertionError(f"calib-intrinsic {name}: card and CPU differ: "
+                                     f"intrinsics {intr_rel:.3e} relative, corners "
+                                     f"reprojected {reproj_px:.3e} px apart, RMSE "
+                                     f"{rmse} / {rmse_cpu} px")
+            out[name] = {"rmse": rmse, "seconds": secs, "focal_rel_err": focal_err}
+        out[model + "-detect"] = det_s
+
+    for name, cam in (
+            ("pinhole_full", pinhole_full_camera(W, H, 980.0, 975.0, 962.0, 603.0,
+                                                 k1=-0.05, k2=0.01, k4=0.02,
+                                                 p1=1e-4, p2=-2e-4)),
+            ("scaramuzza", scaramuzza_camera(W, H, (-600.0, 0.0, 3.0e-4, 0.0, 1e-11),
+                                             958.0, 601.0, c=1.0002, d=3e-4, e=-4e-4))):
+        t0 = time.perf_counter()
+        err, back = _roundtrip(cam, dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        err_cpu, back_cpu = _roundtrip(cam, "cpu")
+        vs_cpu32 = float((back.cpu() - back_cpu).abs().max())
+        # the card against the CPU in float64: in float32 one ulp of a
+        # coordinate past 1024 px is 1.2e-4 px, over the gate by itself
+        _, back64 = _roundtrip(cam, dev, torch.float64)
+        _, back64_cpu = _roundtrip(cam, "cpu", torch.float64)
+        vs_cpu = float((back64.cpu() - back64_cpu).abs().max())
+        say("calib-intrinsic", model=name, pixels=W * H, roundtrip_max_px=f"{err:.3e}",
+            cpu_roundtrip_max_px=f"{err_cpu:.3e}", card_vs_cpu_f32_px=f"{vs_cpu32:.3e}",
+            card_vs_cpu_f64_px=f"{vs_cpu:.3e}", seconds=f"{secs:.3f}")
+        if not err < ROUNDTRIP_GATE_PX:
+            raise AssertionError(f"calib-intrinsic {name}: round trip {err} px")
+        if not vs_cpu <= ROUNDTRIP_CPU_PX:
+            raise AssertionError(f"calib-intrinsic {name}: card and CPU round trips "
+                                 f"differ by {vs_cpu} px in float64")
+    out["seconds"] = time.perf_counter() - t_phase
+    say("calib-intrinsic", phase_seconds=f"{out['seconds']:.1f}")
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     name = device_phase()
@@ -1268,12 +1657,18 @@ def main() -> None:
     pipe_kitti = pipeline_phase("pipeline-kitti", kitti_scale_config(), dev,
                                 seed=600, compare_cpu=False)
     say("time", after="pipelines", seconds=f"{time.perf_counter() - t_start:.1f}")
-    sys_synthetic = system_phase("system-synthetic", synthetic_config(), dev, seed=700)
+    sys_synthetic = system_phase("system-synthetic", synthetic_config(), dev, seed=700,
+                                 n_frames=SYS_SYN_FRAMES)
     sys_kitti = system_phase("system-kitti", kitti_scale_config(), dev, seed=800)
     say("time", after="systems", seconds=f"{time.perf_counter() - t_start:.1f}")
     files = kitti_files_phase(dev, seed=900, chunked_fps=sys_kitti["fps"])
     say("time", after="kitti-files", phase_seconds=f"{files['seconds']:.1f}",
         seconds=f"{time.perf_counter() - t_start:.1f}")
+    calib = calib_online_phase(dev)
+    say("time", after="calib-online", phase_seconds=f"{calib['seconds']:.1f}",
+        seconds=f"{time.perf_counter() - t_start:.1f}")
+    calib_intrinsic_phase(dev)
+    say("time", after="calib-intrinsic", seconds=f"{time.perf_counter() - t_start:.1f}")
     loop_shapes = {f"{Q}x{M}": knn["shapes"][(Q, M)] for Q, M in KNN_LOOP_SHAPES}
     print(json.dumps({"kernels": [{
         "name": "knn", "route": "cuda",
@@ -1286,7 +1681,8 @@ def main() -> None:
                                "pipeline-synthetic": pipe_synthetic["knn_per_frame"],
                                "system-kitti": sys_kitti["knn_per_frame"],
                                "system-synthetic": sys_synthetic["knn_per_frame"],
-                               "kitti-files": files["knn_per_frame"]},
+                               "kitti-files": files["knn_per_frame"],
+                               "calib-online": calib["knn_per_frame"]},
         "loop_lane_launches_per_keyframe": {
             "system-kitti": sys_kitti["loop_knn_per_keyframe"],
             "system-synthetic": sys_synthetic["loop_knn_per_keyframe"],
@@ -1306,7 +1702,8 @@ def main() -> None:
                                "pipeline-synthetic": pipe_synthetic["lk_per_frame"],
                                "system-kitti": sys_kitti["lk_per_frame"],
                                "system-synthetic": sys_synthetic["lk_per_frame"],
-                               "kitti-files": files["lk_per_frame"]},
+                               "kitti-files": files["lk_per_frame"],
+                               "calib-online": calib["lk_per_frame"]},
         "max_abs_err": lk["max_abs_err"],
         "ms": lk["ms"], "plain_ms": lk["plain_ms"],
         "bound_ms": lk["bound_ms"], "bound_by": lk["bound_by"],

@@ -13,7 +13,9 @@ i+1 → new slot i), so `slide_old` applies right after.
 The √-form (J, r0) is defined only up to eigenvector signs and rotations
 inside repeated eigenvalues; what the solver sees of it, Jᵀ J, Jᵀ r0 and
 r0ᵀ r0, is not.  `torch.linalg.eigh` on CUDA checks its status on the host,
-a sync once per keyframe slide.
+a sync once per keyframe slide.  Where LAPACK fails to converge, torch
+raises; the reference's `jnp.linalg.eigh` returns NaNs and the run goes on,
+and so does the port's (`_eigh`).
 """
 
 from __future__ import annotations
@@ -24,6 +26,15 @@ from lmono_tpu_torch.config import EstimatorConfig
 from lmono_tpu_torch.estimator import factors
 from lmono_tpu_torch.estimator.feature_manager import shift_left
 from lmono_tpu_torch.estimator.window import MargPrior, WindowState
+
+
+def _eigh(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`torch.linalg.eigh`, NaNs where it fails to converge (as JAX's)."""
+    try:
+        return torch.linalg.eigh(S)
+    except torch.linalg.LinAlgError:
+        nan = torch.full_like(S, float("nan"))
+        return nan[0], nan
 
 
 def marginalize_oldest(state: WindowState, cfg: EstimatorConfig) -> MargPrior:
@@ -82,7 +93,7 @@ def marginalize_oldest(state: WindowState, cfg: EstimatorConfig) -> MargPrior:
 
     # √-form via eigendecomposition
     S = 0.5 * (S + S.T)
-    lam, U = torch.linalg.eigh(S)
+    lam, U = _eigh(S)
     pos = lam > 1e-8
     sqrt_l = torch.sqrt(torch.where(pos, lam, 0.0))
     inv_sqrt_l = torch.where(pos, 1.0 / torch.sqrt(torch.clamp(lam, min=1e-8)), 0.0)

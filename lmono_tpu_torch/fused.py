@@ -67,7 +67,9 @@ def fused_step(state: FusedState, frame: dict, cam: CameraModel,
     tracker's `frame`).  The result holds device tensors and two host
     counts, `lm_attempts` and `readbacks`; with_features=True adds the
     scan's edge/planar feature sets (`result["features"]`) for the loop
-    lane's LiDAR refinement.
+    lane's LiDAR refinement.  `handeye_q` / `handeye_converged` are the
+    hand-eye rotation estimate R_CL and its adoption flag after this frame
+    (identity and false unless estimate_laser == 2).
     """
     odo, lo = odometry_step(state.odo, {k: frame[k] for k in _SCAN},
                             cfg.lidar, n)
@@ -84,6 +86,8 @@ def fused_step(state: FusedState, frame: dict, cam: CameraModel,
         "n_tracked": out.n_tracked,
         "laser_t": lo["pose"].t, "laser_q": lo["pose"].q,
         "solve_cost": out.solve_cost,
+        "handeye_q": est.handeye.q_ex,
+        "handeye_converged": est.handeye.converged,
         "lm_attempts": out.lm_attempts,
         "readbacks": out.readbacks,
     }

@@ -4,10 +4,10 @@ PyTorch.
 Port of `lmono_tpu/io/synthetic.py`: an analytic world of axis-aligned
 building boxes, vertical poles and a ground plane, ray-cast exactly into a
 per-ring range image or a pinhole camera image with a procedural texture,
-plus the ground-truth circuit trajectory and, for scoring feature tracks,
-where a pixel's scene point appears in another camera.  The scene comes
-from numpy's `RandomState`, so its arrays are bit-equal to the JAX
-package's.  Scan noise comes from a `torch.Generator` (or an explicit
+plus the ground-truth circuit and figure-8 trajectories and, for scoring
+feature tracks, where a pixel's scene point appears in another camera.
+The scene comes from numpy's `RandomState`, so its arrays are bit-equal to
+the JAX package's.  Scan noise comes from a `torch.Generator` (or an explicit
 standard-normal tensor), since JAX keys cannot be replayed.
 """
 
@@ -346,6 +346,36 @@ def circuit_trajectory(n_frames: int, radius: float = 32.0, dt: float = 0.1,
     yaw = theta + math.pi / 2.0
     pitch = wobble * 0.2 * torch.cos(3.1 * theta)
     roll = wobble * 0.15 * torch.sin(2.3 * theta)
+    zero = torch.zeros_like(yaw)
+    q_yaw = so3_exp_quat(torch.stack([zero, zero, yaw], -1))
+    q_pitch = so3_exp_quat(torch.stack([zero, pitch, zero], -1))
+    q_roll = so3_exp_quat(torch.stack([roll, zero, zero], -1))
+    q = quat_mul(q_yaw, quat_mul(q_pitch, q_roll))
+    return Pose(pos, q)
+
+
+def figure8_trajectory(n_frames: int, radius: float = 26.0, dt: float = 0.1,
+                       speed: float = 8.0, z: float = 1.7, tilt: float = 0.18,
+                       device=None) -> Pose:
+    """Rotation-rich ground truth: a figure-eight (Gerono lemniscate) with
+    pitch/roll oscillation of ~10°, exciting all three rotation axes.
+
+    Yaw-only motion (the circuit) leaves the hand-eye system AX = XB
+    rank-deficient, so its σ₂ gate refuses it; the estimate_laser == 2
+    presets are driven on this trajectory instead.
+    """
+    t = torch.arange(n_frames, dtype=torch.float32, device=device) * dt
+    s = speed * t / radius
+    # Gerono lemniscate; direction from the analytic derivative
+    x = radius * torch.cos(s)
+    y = radius * torch.sin(s) * torch.cos(s)
+    dx = -radius * torch.sin(s)
+    dy = radius * (torch.cos(s) ** 2 - torch.sin(s) ** 2)
+    zz = z + 0.8 * torch.sin(1.7 * s)
+    pos = torch.stack([x, y, zz], dim=-1)
+    yaw = torch.atan2(dy, dx)
+    pitch = tilt * torch.sin(2.3 * s)
+    roll = tilt * 0.7 * torch.cos(1.9 * s)
     zero = torch.zeros_like(yaw)
     q_yaw = so3_exp_quat(torch.stack([zero, zero, yaw], -1))
     q_pitch = so3_exp_quat(torch.stack([zero, pitch, zero], -1))

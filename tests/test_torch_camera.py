@@ -1,7 +1,7 @@
 """The port's pinhole camera (`lmono_tpu_torch.camera`) against
 `lmono_tpu.camera`: projection and lifting within 1e-4 px / 1e-6 in
 normalized coordinates (f32, the same formulas), with and without radtan
-distortion."""
+distortion.  The other four models: `test_torch_camera_models.py`."""
 
 import dataclasses
 
@@ -59,10 +59,7 @@ def test_undistortion_runs_its_fixed_iterations():
     np.testing.assert_allclose(b[1], a[1], rtol=0, atol=1e-6)
 
 
-def test_unported_models_raise():
-    for model in ("pinhole_full", "mei", "equidistant", "scaramuzza"):
-        with pytest.raises(NotImplementedError):
-            camera_from_config(TCameraConfig(model=model))
+def test_unknown_model_raises():
     with pytest.raises(ValueError):
         camera_from_config(TCameraConfig(model="fisheye9"))
     cam = pinhole_camera(64, 32, 50.0, 50.0, 32.0, 16.0)

@@ -75,6 +75,9 @@ def test_port_imports_no_jax():
         "lmono_tpu_torch.io.replay", "lmono_tpu_torch.native", "lmono_tpu_torch.eval",
         "lmono_tpu_torch.utils", "lmono_tpu_torch.utils.metrics",
         "lmono_tpu_torch.utils.checkpoint", "lmono_tpu_torch.run_kitti",
+        "lmono_tpu_torch.camera.models", "lmono_tpu_torch.camera.factory",
+        "lmono_tpu_torch.camera.calibration", "lmono_tpu_torch.eval_sweep",
+        "lmono_tpu_torch.intrinsic_calib",
     ]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"

@@ -75,3 +75,18 @@ def test_prior_cost_matches_at_a_displaced_state():
         cost[name] = float(torch.sum(r.double() ** 2))
     np.testing.assert_allclose(cost["port"], cost["jax"], rtol=1e-3)
     assert cost["port"] > 0.0
+
+
+def test_eigh_failure_gives_nans_as_the_reference():
+    """Where LAPACK fails to converge (a NaN matrix does it), torch raises
+    and JAX returns NaNs; the port's `_eigh` returns NaNs too, so a
+    marginalization goes on as the reference's does."""
+    S = np.full((6, 6), np.nan, np.float32)
+    lam_j, U_j = jnp.linalg.eigh(jnp.asarray(S))
+    lam_t, U_t = tm._eigh(torch.from_numpy(S))
+    assert lam_t.shape == (6,) and U_t.shape == (6, 6)
+    assert np.isnan(np.asarray(lam_j)).all() and torch.isnan(lam_t).all()
+    assert np.isnan(np.asarray(U_j)).all() and torch.isnan(U_t).all()
+    S = np.diag(np.arange(1.0, 7.0)).astype(np.float32)
+    np.testing.assert_array_equal(tm._eigh(torch.from_numpy(S))[0].numpy(),
+                                  np.arange(1.0, 7.0, dtype=np.float32))
