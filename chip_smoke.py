@@ -6,8 +6,10 @@
 Drives the port's slices through their entry points,
 `LidarOdometry.process_chunk`, `FeatureTracker.process`,
 `FusedPipeline.process_chunk`, `SlamSystem.process_chunk`, `run_kitti.main`,
-`eval_sweep.run_preset` and the calibration functions, and checks every
-kernel on their paths against its plain PyTorch version:
+`eval_sweep.run_preset`, the calibration functions, `stereo_match`,
+`global_sfm` and the `run_lidar_odometry`, `run_full_pipeline` and
+`bench_loop_pr` entry points, and checks every kernel on their paths
+against its plain PyTorch version:
 
 1. device: the card, its power limit and the toolchain;
 2. build: compiles the CUDA kernels (`lmono_tpu_torch/csrc/knn.cu`, K1, and
@@ -118,6 +120,30 @@ kernel on their paths against its plain PyTorch version:
    float32 one ulp of a coordinate past 1024 px is 1.2e-4 px; that
    difference is reported).  Seconds for detection and for
    each solve reported.
+12. stereo: a rectified pair of the city at `kitti_scale_config()`'s
+   1241×376 camera, the right camera 0.54 m (KITTI's baseline) along the
+   left one's +x, rendered on the card; 150 corners of the left image
+   through `stereo_match` (3 levels): exactly 1 K2 launch (its one-way
+   launch over every level) and no plain LK call, at least 60 matches, the
+   median relative depth error against the ray-cast truth under 0.08 on
+   points nearer than 40 m (tests/test_stereo.py's gate); the one-way
+   launch against `track_pyramid_plain` on the same card tensors within
+   0.1 px where both are ok, ok equal on every slot not within 42 px of the
+   border; its time beside the plain chain's and its bound.
+13. sfm: `global_sfm` on a window of 11 circuit frames at the KITTI camera
+   and 150 tracks of ray-cast scene points with 1/fx noise, anchored at
+   frame 0 with the true relative pose to the last frame: `ok`, the poses
+   within 0.15 m of the truth after scale alignment (tests/test_sfm.py's
+   gate), and the card's poses within 1e-3 m and 1e-3 rad of a CPU run.
+14. examples: `run_lidar_odometry.main` over 60 synthetic frames (ATE gate
+   0.5 m, 2 K1 launches per outer iteration and frame);
+   `run_full_pipeline.main` over 30 frames, loop and map on (the PLY read
+   back with the count written, 1 K2 launch a frame, K1 in the odometry and
+   the loop lane as above); `pose_bspline_resample` of that trajectory at
+   twice the frame rate, the card within 1e-5 of the CPU;
+   `bench_loop_pr.main` at its default 78 keyframes: no false positive and
+   recall at least 0.85, reported beside the JAX package's own record
+   (`LOOP_PR.json`, not a card number).
 
 The plain versions and library calls that take over YARD_MS a call are
 timed over YARD_REPS runs of YARD_CALLS calls (the kernels over 20 × 5).
@@ -258,6 +284,28 @@ CARD_CPU_RTOL = 1e-3          # the card's intrinsics against a CPU run
 CARD_CPU_REPROJ_PX = 0.01     # and its corners reprojected, and its RMSE
 ROUNDTRIP_GATE_PX = 1e-3      # lift then project, every pixel
 ROUNDTRIP_CPU_PX = 1e-4       # the card's round trip against the CPU's (float64)
+# stereo: a rectified pair of the city at kitti_scale_config's camera, the
+# right camera STEREO_BASELINE_M (KITTI's) along the camera's +x; the gates
+# are tests/test_stereo.py's
+STEREO_BASELINE_M = 0.54
+STEREO_CORNERS = 150
+STEREO_LEVELS = 3
+STEREO_MIN_MATCHES = 60
+STEREO_DEPTH_GATE = 0.08      # median relative depth error, points nearer than
+STEREO_NEAR_M = 40.0          # this
+STEREO_PX_ATOL = 0.1          # K2's one-way launch against track_pyramid_plain
+STEREO_BORDER_PX = 2 * LK_PATCH   # slots this near the border may flip ok
+# sfm: a window of SFM_W1 circuit frames at kitti_scale_config's camera, SFM_M
+# tracks of ray-cast scene points with 1/fx noise; gates tests/test_sfm.py's
+SFM_W1, SFM_M = 11, 150
+SFM_POSE_GATE_M = 0.15
+SFM_CPU_ATOL_M, SFM_CPU_ATOL_RAD = 1e-3, 1e-3
+# examples: the three entry points of the single-device remainder
+EX_ODOMETRY_FRAMES = 60
+EX_PIPELINE_FRAMES = 30
+SPLINE_CPU_ATOL = 1e-5        # pose_bspline_resample, card against CPU
+LOOP_PR_MAX_FALSE_POSITIVES = 0
+LOOP_PR_RECALL_GATE = 0.85
 
 
 def say(phase: str, **kv) -> None:
@@ -1634,6 +1682,341 @@ def calib_intrinsic_phase(dev) -> dict:
     say("calib-intrinsic", phase_seconds=f"{out['seconds']:.1f}")
     return out
 
+def _oneway_bound_ms(pyr0, pts, mask, pt1) -> tuple[float, str]:
+    """`_lk_bound_ms` of one one-way track, counting what this run's data
+    needs, as `_fb_bound_ms` counts its forward half: a run per level for
+    each masked-in slot, one slab per array at each slot's final position
+    (pyr0, ix0, iy0 at pts0, pyr1 at pts1)."""
+    from lmono_tpu_torch.ops.lk import level_table
+
+    f, f1 = pts[mask], pt1[mask]
+    reads = []
+    for lv in level_table([tuple(p.shape) for p in pyr0], LK_PATCH):
+        s, geo = lv.scale, (lv.H, lv.W, lv.pallas)
+        reads += [(*geo, f * s)] * 3 + [(*geo, f1 * s)]
+    N = pts.shape[0]
+    return _lk_bound_ms(reads, len(pyr0) * int(mask.sum()), N * (8 + 1 + 8 + 1))
+
+
+def _stereo_pair(cam, dev):
+    """A rectified pair of the city at `cam` from the circuit's first frame,
+    the right camera STEREO_BASELINE_M along the left camera's +x: (left
+    image, right image, left camera pose, scene)."""
+    from lmono_tpu_torch.io import synthetic as syn
+    from lmono_tpu_torch.utils.lie import Pose, quat_rotate
+
+    scene = syn.make_city_scene(device=dev)
+    traj = syn.circuit_trajectory(1, device=dev)
+    pose_l = Pose(traj.t[0], traj.q[0]).compose(
+        syn.synthetic_T_CL(device=dev).inverse())
+    offset = quat_rotate(pose_l.q, torch.tensor([STEREO_BASELINE_M, 0.0, 0.0],
+                                                device=dev))
+    pose_r = Pose(pose_l.t + offset, pose_l.q)
+    return (syn.render_camera(scene, pose_l, cam), syn.render_camera(scene, pose_r, cam),
+            pose_l, scene)
+
+
+def stereo_phase(dev) -> dict:
+    """`stereo_match` at KITTI widths: STEREO_CORNERS corners of the left
+    image tracked one way into the right one, one K2 launch over
+    STEREO_LEVELS levels; depths against the ray-cast truth, and the launch
+    against `track_pyramid_plain` on the same card tensors."""
+    from lmono_tpu_torch.config import kitti_scale_config
+    from lmono_tpu_torch.estimator.stereo import StereoModel, stereo_match
+    from lmono_tpu_torch.io import synthetic as syn
+    from lmono_tpu_torch.ops import lk as lk_mod
+    from lmono_tpu_torch.ops.corners import detect_grid
+    from lmono_tpu_torch.ops.cuda import lk as lk_cuda_mod
+    from lmono_tpu_torch.ops.cuda.lk import track_pyramid_cuda
+    from lmono_tpu_torch.ops.image import build_pyramid, scharr_gradients
+    from lmono_tpu_torch.ops.lk import track_pyramid_plain
+    from lmono_tpu_torch.utils.lie import quat_rotate
+
+    t_phase = time.perf_counter()
+    cfg = kitti_scale_config()
+    cc, tr = cfg.camera, cfg.tracker
+    img_l, img_r, pose_l, scene = _stereo_pair(cc, dev)
+    uv, ok = detect_grid(img_l, tr.min_dist, STEREO_CORNERS,
+                         torch.zeros((1, 2), device=dev),
+                         torch.zeros((1,), dtype=torch.bool, device=dev),
+                         min_quality_rel=tr.min_track_quality, border=tr.border_margin)
+    pyr = build_pyramid(img_l, STEREO_LEVELS)
+    grads = [scharr_gradients(p) for p in pyr]
+
+    # the main path, counted: one stereo_match
+    lk_cuda_mod.lk_kernel_launches = 0
+    lk_mod.lk_plain_calls = 0
+    disp, dok = stereo_match(pyr, grads, img_r, uv, ok, patch=LK_PATCH,
+                             iters=LK_ITERS, levels=STEREO_LEVELS)
+    torch.cuda.synchronize()
+    launches, plain = lk_cuda_mod.lk_kernel_launches, lk_mod.lk_plain_calls
+
+    # depths against the exact ray-cast ranges (tests/test_stereo.py)
+    sm = StereoModel(cc.fx, cc.fy, cc.cx, cc.cy, STEREO_BASELINE_M)
+    rays = torch.cat([(uv[:, :1] - cc.cx) / cc.fx, (uv[:, 1:] - cc.cy) / cc.fy,
+                      torch.ones_like(uv[:, :1])], -1)
+    rays = rays / torch.linalg.norm(rays, dim=-1, keepdim=True)
+    rays_w = quat_rotate(pose_l.q[None], rays)
+    z_true = syn.ray_cast(scene, pose_l.t.expand(rays_w.shape), rays_w) * rays[:, 2]
+    z_est = sm.disparity_to_depth(disp)
+    near = dok & (z_true < STEREO_NEAR_M)
+    rel = (torch.abs(z_est - z_true) / torch.clamp(z_true, min=1.0))[near]
+    med = float(rel.median()) if rel.numel() else float("inf")
+    matches = int(dok.sum())
+
+    # K2's one-way launch against the plain chain on the same card tensors
+    pyr_r = build_pyramid(img_r, STEREO_LEVELS)
+    args = (pyr, grads, pyr_r, uv, ok, LK_PATCH, LK_ITERS, LK_EPS)
+    p_k, ok_k = track_pyramid_cuda(*args)
+    p_p, ok_p = track_pyramid_plain(*args)
+    torch.cuda.synchronize()
+    both = ok_k & ok_p
+    err = float((p_k - p_p).abs()[both].max()) if both.any() else 0.0
+    H, W = img_l.shape
+
+    def border_dist(p):
+        return torch.minimum(torch.minimum(p[:, 0], W - 1 - p[:, 0]),
+                             torch.minimum(p[:, 1], H - 1 - p[:, 1]))
+
+    at_border = torch.stack([border_dist(p) for p in (uv, p_k, p_p)]).min(0).values \
+        < STEREO_BORDER_PX
+    flips = ok_k != ok_p
+    k_ms = _median_ms(lambda: track_pyramid_cuda(*args))
+    p_ms = _yardstick_ms(lambda: track_pyramid_plain(*args))
+    bound, by = _oneway_bound_ms(pyr, uv, ok, p_k)
+    say("stereo", image=f"{W}x{H}", levels=STEREO_LEVELS, corners=int(ok.sum()),
+        baseline_m=STEREO_BASELINE_M, matches=matches, near_matches=int(near.sum()),
+        median_rel_depth_err=f"{med:.6f}", lk_launches=launches, lk_plain_calls=plain,
+        kernel_ok=int(ok_k.sum()), plain_ok=int(ok_p.sum()),
+        ok_flips=int(flips.sum()), ok_flips_off_border=int((flips & ~at_border).sum()),
+        max_abs_err_px=err, kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+        bound_ms=f"{bound:.6f}", bound_by=by, roofline_share=f"{bound / k_ms:.4f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    if launches != 1 or plain != 0:
+        raise AssertionError(f"stereo: {launches} K2 launches and {plain} plain LK "
+                             f"calls in one stereo_match, expected 1 and 0")
+    if matches < STEREO_MIN_MATCHES:
+        raise AssertionError(f"stereo: {matches} matches, expected {STEREO_MIN_MATCHES}")
+    if not med < STEREO_DEPTH_GATE:
+        raise AssertionError(f"stereo: median relative depth error {med}")
+    if not err <= STEREO_PX_ATOL or bool((flips & ~at_border).any()):
+        raise AssertionError(f"stereo: the one-way launch differs from the plain "
+                             f"chain by {err} px, ok flips {int(flips.sum())}")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": err, "launches_per_match": launches,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def _sfm_window(cam, dev, g: torch.Generator):
+    """SFM_W1 circuit frames at `cam` and SFM_M scene points ray-cast from
+    the middle frame: (obs (M, W1, 2) normalized with 1/fx noise, mask,
+    world-from-camera poses (W1,))."""
+    from lmono_tpu_torch.io import synthetic as syn
+    from lmono_tpu_torch.utils.lie import Pose, quat_rotate
+
+    scene = syn.make_city_scene(device=dev)
+    traj = syn.circuit_trajectory(SFM_W1, device=dev)
+    T_LC = syn.synthetic_T_CL(device=dev).inverse()
+    poses = Pose(traj.t, traj.q).compose(Pose(T_LC.t.expand(SFM_W1, 3),
+                                              T_LC.q.expand(SFM_W1, 4)))
+    mid = SFM_W1 // 2
+    px = torch.rand(8 * SFM_M, 2, generator=g, device=dev) * torch.tensor(
+        [cam.width - 1.0, cam.height - 1.0], device=dev)
+    rays = torch.stack([(px[:, 0] - cam.cx) / cam.fx, (px[:, 1] - cam.cy) / cam.fy,
+                        torch.ones_like(px[:, 0])], -1)
+    rays = rays / torch.linalg.norm(rays, dim=-1, keepdim=True)
+    rays_w = quat_rotate(poses.q[mid][None], rays)
+    dist = syn.ray_cast(scene, poses.t[mid].expand(rays_w.shape), rays_w)
+    hit = torch.nonzero((dist > 3.0) & (dist < 60.0))[:SFM_M, 0]
+    X = poses.t[mid] + rays_w[hit] * dist[hit, None]
+    if X.shape[0] != SFM_M:
+        raise AssertionError(f"sfm: {X.shape[0]} scene points, expected {SFM_M}")
+    pc = Pose(poses.t[None], poses.q[None]).apply_inv(X[:, None])     # (M, W1, 3)
+    z = pc[..., 2]
+    obs = pc[..., :2] / torch.clamp(z, min=1e-6)[..., None]
+    obs = obs + torch.randn(obs.shape, generator=g, device=dev) / cam.fx
+    u = obs[..., 0] * cam.fx + cam.cx
+    v = obs[..., 1] * cam.fy + cam.cy
+    mask = (z > 0.5) & (u >= 0) & (u < cam.width) & (v >= 0) & (v < cam.height)
+    return obs, mask, poses
+
+
+def _rot_err_rad(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
+    from lmono_tpu_torch.utils.lie import quat_conj, quat_mul
+
+    w = torch.abs(quat_mul(quat_conj(qa), qb)[..., 0]).clamp(max=1.0)
+    return 2.0 * torch.acos(w)
+
+
+def sfm_phase(dev) -> dict:
+    """`global_sfm` on a window of SFM_W1 frames and SFM_M tracks at KITTI
+    widths, anchored at frame 0 with the true relative pose to the last
+    frame: on the card, then on the CPU from the same inputs."""
+    from lmono_tpu_torch.config import kitti_scale_config
+    from lmono_tpu_torch.estimator.sfm import global_sfm
+    from lmono_tpu_torch.utils.lie import Pose
+
+    t_phase = time.perf_counter()
+    cam = kitti_scale_config().camera
+    obs, mask, poses = _sfm_window(cam, dev, torch.Generator(device=dev).manual_seed(9))
+    l = 0
+    pose_l = Pose(poses.t[l], poses.q[l])
+    rel = Pose(poses.t[-1], poses.q[-1]).inverse().compose(pose_l)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = global_sfm(obs, mask, l, rel)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = global_sfm(obs.cpu(), mask.cpu(), l, Pose(rel.t.cpu(), rel.q.cpu()))
+    t_cpu = time.perf_counter() - t0
+
+    # the truth in frame l, the estimate scaled onto it
+    t_ref = pose_l.inverse().apply(poses.t)
+    t_est = res.poses.t
+    s = float((t_est * t_ref).sum() / (t_est * t_est).sum().clamp(min=1e-12))
+    pose_err = float(torch.linalg.norm(s * t_est - t_ref, dim=-1).max())
+    d_t = float((res.poses.t.cpu() - cpu.poses.t).abs().max())
+    d_r = float(_rot_err_rad(res.poses.q.cpu(), cpu.poses.q).max())
+    ok = bool(res.ok)
+    say("sfm", frames=SFM_W1, tracks=SFM_M, camera=f"{cam.width}x{cam.height}",
+        observations=int(mask.sum()), ok=ok, triangulated=int(res.point_ok.sum()),
+        scale=f"{s:.6f}", max_pose_err_m=f"{pose_err:.6f}",
+        card_vs_cpu_m=f"{d_t:.3e}", card_vs_cpu_rad=f"{d_r:.3e}",
+        same_triangulated=bool(torch.equal(res.point_ok.cpu(), cpu.point_ok)),
+        card_seconds=f"{t_card:.2f}", cpu_seconds=f"{t_cpu:.2f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    if not ok:
+        raise AssertionError("sfm: global_sfm reports too little support")
+    if not pose_err < SFM_POSE_GATE_M:
+        raise AssertionError(f"sfm: poses {pose_err} m from the truth")
+    if not (d_t <= SFM_CPU_ATOL_M and d_r <= SFM_CPU_ATOL_RAD):
+        raise AssertionError(f"sfm: the card's poses differ from the CPU's by "
+                             f"{d_t} m, {d_r} rad")
+    return {"seconds": time.perf_counter() - t_phase, "card_seconds": t_card}
+
+
+def examples_phase(dev) -> dict:
+    """The example entry points: `run_lidar_odometry.main` and
+    `run_full_pipeline.main` (K1 and K2 counted), `pose_bspline_resample`
+    of the full pipeline's trajectory on the card against the CPU, and
+    `bench_loop_pr.main` at its default keyframes."""
+    import tempfile
+
+    from lmono_tpu_torch import bench_loop_pr, run_full_pipeline, run_lidar_odometry
+    from lmono_tpu_torch.config import synthetic_config
+    from lmono_tpu_torch.ops import knn as knn_mod
+    from lmono_tpu_torch.ops import lk as lk_mod
+    from lmono_tpu_torch.ops.cuda import knn as knn_cuda_mod
+    from lmono_tpu_torch.ops.cuda import lk as lk_cuda_mod
+    from lmono_tpu_torch.utils.lie import Pose
+    from lmono_tpu_torch.utils.spline import pose_bspline_resample
+
+    t_phase = time.perf_counter()
+    cfg = synthetic_config()
+    n_outer = max(1, (cfg.lidar.scan_to_map_iters + 1) // 2)
+    n_refine = max(1, (cfg.loop.refine_iters + 1) // 2)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # run_lidar_odometry on the synthetic circuit
+        n = EX_ODOMETRY_FRAMES
+        knn_cuda_mod.knn_kernel_launches = lk_cuda_mod.lk_kernel_launches = 0
+        knn_mod.knn_plain_calls = lk_mod.lk_plain_calls = 0
+        t0 = time.perf_counter()
+        odo = run_lidar_odometry.main(["--frames", str(n), "--out", tmp])
+        t_odo = time.perf_counter() - t0
+        knn_odo = knn_cuda_mod.knn_kernel_launches
+        plain = (knn_mod.knn_plain_calls, lk_mod.lk_plain_calls)
+        rows = len(open(odo["tum"]).read().splitlines())
+        say("examples", entry="run_lidar_odometry", frames=n, ate_m=f"{odo['ate']:.6f}",
+            fps=f"{odo['fps']:.3f}", tum_rows=rows, knn_launches=knn_odo,
+            knn_per_frame=f"{knn_odo / n:.3f}", knn_plain_calls=plain[0],
+            seconds=f"{t_odo:.1f}")
+        if not odo["ate"] < ATE_GATE_M or rows != n:
+            raise AssertionError(f"run_lidar_odometry: ATE {odo['ate']} m, {rows} rows")
+        if knn_odo != 2 * n_outer * n or plain != (0, 0):
+            raise AssertionError(f"run_lidar_odometry: {knn_odo} K1 launches, expected "
+                                 f"{2 * n_outer * n}; {plain} plain calls")
+        out["knn_per_frame_odometry"] = knn_odo / n
+
+        # run_full_pipeline, loop and map on, the PLY written and read back
+        n = EX_PIPELINE_FRAMES
+        ply = os.path.join(tmp, "map.ply")
+        counts, undo = _counted_loop_knn()
+        knn_cuda_mod.knn_kernel_launches = lk_cuda_mod.lk_kernel_launches = 0
+        knn_mod.knn_plain_calls = lk_mod.lk_plain_calls = 0
+        try:
+            t0 = time.perf_counter()
+            full = run_full_pipeline.main(["--frames", str(n), "--out", tmp, "--ply", ply])
+            t_full = time.perf_counter() - t0
+        finally:
+            undo()
+        knn_full, lk_full = knn_cuda_mod.knn_kernel_launches, lk_cuda_mod.lk_kernel_launches
+        plain = (knn_mod.knn_plain_calls, lk_mod.lk_plain_calls)
+        system = full["system"]
+        kfs = system.keyframes_processed
+        with open(ply, "rb") as f:
+            data = f.read()
+        head = data[:data.index(b"end_header\n") + len(b"end_header\n")]
+        n_ply = int(head.split(b"element vertex ")[1].split(b"\n")[0])
+        ply_ok = n_ply == full["map_points"] > 0 and len(data) == len(head) + 15 * n_ply
+        say("examples", entry="run_full_pipeline", frames=n, ate_m=f"{full['ate']:.6f}",
+            final_ate_m=f"{full['final_ate']:.6f}", fps=f"{full['fps']:.3f}",
+            closures=system.n_loops, keyframes_processed=kfs, map_points=full["map_points"],
+            ply_vertices=n_ply, knn_launches=knn_full, loop_lane_knn_launches=counts["knn"],
+            lk_launches=lk_full, knn_per_frame=f"{knn_full / n:.3f}",
+            lk_per_frame=f"{lk_full / n:.3f}", knn_plain_calls=plain[0],
+            lk_plain_calls=plain[1], seconds=f"{t_full:.1f}")
+        if not ply_ok:
+            raise AssertionError(f"run_full_pipeline: the PLY holds {n_ply} vertices, "
+                                 f"{full['map_points']} written")
+        if not math.isfinite(full["ate"]) or not math.isfinite(full["final_ate"]):
+            raise AssertionError(f"run_full_pipeline: ATE {full['ate']}, "
+                                 f"{full['final_ate']}")
+        if lk_full != n or knn_full - counts["knn"] != 2 * n_outer * n:
+            raise AssertionError(f"run_full_pipeline: {lk_full} K2 and "
+                                 f"{knn_full - counts['knn']} odometry K1 launches")
+        if counts["knn"] != 2 * n_refine * kfs or plain != (0, 0):
+            raise AssertionError(f"run_full_pipeline: {counts['knn']} loop-lane K1 "
+                                 f"launches for {kfs} keyframes; {plain} plain calls")
+        out.update(knn_per_frame_pipeline=knn_full / n, lk_per_frame_pipeline=lk_full / n)
+
+        # that run's trajectory resampled at twice the frame rate
+        traj = full["trajectory"]
+        times = torch.arange(n, dtype=torch.float32) * 0.1
+        query = torch.arange(2 * n - 1, dtype=torch.float32) * 0.05
+        card = pose_bspline_resample(Pose(traj.t.to(dev), traj.q.to(dev)),
+                                     times.to(dev), query.to(dev))
+        host = pose_bspline_resample(traj, times, query)
+        d = max(float((card.t.cpu() - host.t).abs().max()),
+                float((card.q.cpu() - host.q).abs().max()))
+        say("examples", entry="pose_bspline_resample", poses=n, queries=2 * n - 1,
+            card_vs_cpu=f"{d:.3e}")
+        if not d <= SPLINE_CPU_ATOL:
+            raise AssertionError(f"pose_bspline_resample: card and CPU differ by {d}")
+
+        # bench_loop_pr at its default keyframes
+        t0 = time.perf_counter()
+        pr = bench_loop_pr.main(["--out", os.path.join(tmp, "loop_pr.json")])
+        t_pr = time.perf_counter() - t0
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "LOOP_PR.json")) as f:
+            record = json.load(f)
+        say("examples", entry="bench_loop_pr", keyframes=pr["keyframes"],
+            detections=pr["detections"], false_positives=pr["false_positives"],
+            precision=f"{pr['precision']:.6f}", recall=f"{pr['recall']:.6f}",
+            revisits=pr["revisit_keyframes"], miss_stages=json.dumps(pr["miss_stages"]),
+            sec_per_keyframe=f"{pr['sec_per_keyframe']:.4f}",
+            jax_package_record=f"LOOP_PR.json precision {record['precision']} recall "
+            f"{record['recall']:.3f} (the JAX package's, not a card number)",
+            seconds=f"{t_pr:.1f}")
+        if pr["false_positives"] > LOOP_PR_MAX_FALSE_POSITIVES or \
+                not pr["recall"] >= LOOP_PR_RECALL_GATE:
+            raise AssertionError(f"bench_loop_pr: {pr['false_positives']} false "
+                                 f"positives, recall {pr['recall']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
 
 def main() -> None:
     t_start = time.perf_counter()
@@ -1669,6 +2052,14 @@ def main() -> None:
         seconds=f"{time.perf_counter() - t_start:.1f}")
     calib_intrinsic_phase(dev)
     say("time", after="calib-intrinsic", seconds=f"{time.perf_counter() - t_start:.1f}")
+    t_new = time.perf_counter()
+    stereo = stereo_phase(dev)
+    sfm = sfm_phase(dev)
+    examples = examples_phase(dev)
+    say("time", after="examples", stereo_seconds=f"{stereo['seconds']:.1f}",
+        sfm_seconds=f"{sfm['seconds']:.1f}", examples_seconds=f"{examples['seconds']:.1f}",
+        new_phases_seconds=f"{time.perf_counter() - t_new:.1f}",
+        seconds=f"{time.perf_counter() - t_start:.1f}")
     loop_shapes = {f"{Q}x{M}": knn["shapes"][(Q, M)] for Q, M in KNN_LOOP_SHAPES}
     print(json.dumps({"kernels": [{
         "name": "knn", "route": "cuda",
@@ -1682,7 +2073,9 @@ def main() -> None:
                                "system-kitti": sys_kitti["knn_per_frame"],
                                "system-synthetic": sys_synthetic["knn_per_frame"],
                                "kitti-files": files["knn_per_frame"],
-                               "calib-online": calib["knn_per_frame"]},
+                               "calib-online": calib["knn_per_frame"],
+                               "run_lidar_odometry": examples["knn_per_frame_odometry"],
+                               "run_full_pipeline": examples["knn_per_frame_pipeline"]},
         "loop_lane_launches_per_keyframe": {
             "system-kitti": sys_kitti["loop_knn_per_keyframe"],
             "system-synthetic": sys_synthetic["loop_knn_per_keyframe"],
@@ -1703,7 +2096,14 @@ def main() -> None:
                                "system-kitti": sys_kitti["lk_per_frame"],
                                "system-synthetic": sys_synthetic["lk_per_frame"],
                                "kitti-files": files["lk_per_frame"],
-                               "calib-online": calib["lk_per_frame"]},
+                               "calib-online": calib["lk_per_frame"],
+                               "run_full_pipeline": examples["lk_per_frame_pipeline"]},
+        "stereo": {"shapes": f"{STEREO_LEVELS} levels of a 1241x376 pair, "
+                             f"{STEREO_CORNERS} slots, one way",
+                   "launches_per_stereo_match": stereo["launches_per_match"],
+                   "max_abs_err": stereo["max_abs_err"], "ms": stereo["ms"],
+                   "plain_ms": stereo["plain_ms"], "bound_ms": stereo["bound_ms"],
+                   "bound_by": stereo["bound_by"], "library_ms": None},
         "max_abs_err": lk["max_abs_err"],
         "ms": lk["ms"], "plain_ms": lk["plain_ms"],
         "bound_ms": lk["bound_ms"], "bound_by": lk["bound_by"],

@@ -6,8 +6,9 @@ C entry point loaded with `ctypes`).  Nothing is compiled or loaded when
 this module is imported.
 
 `track_fb_cuda` is one launch for a whole forward-backward track: every
-pyramid level, both directions, a block per slot.  `lk_level_cuda` is the
-same kernel's one-level, one-direction case.  The level pointers and
+pyramid level, both directions, a block per slot.  `track_pyramid_cuda` is
+the same kernel's one-way case over every level (the stereo match), and
+`lk_level_cuda` its one-level, one-direction case.  The level pointers and
 shapes go to the kernel by value, so a call allocates only its outputs.
 
 `lk_kernel_launches` counts the calls that launched the kernel; the plain
@@ -111,23 +112,13 @@ def _launch(images: list, shapes: list, pts0, guess, mask, patch: int,
     return pt1, ok1, back, ok2
 
 
-def track_fb_cuda(pyr0, grads0, pyr1, grads1, pts0: torch.Tensor,
-                  mask: torch.Tensor, patch: int, iters: int, eps: float):
-    """Forward-backward pyramidal LK in one launch: pyr0/pyr1 are lists of
-    L (H,W) f32 levels (finest first), grads0/grads1 lists of (ix, iy) of
-    the same shapes, pts0 (N,2) f32 in level-0 pixels, mask (N,) bool, all
-    contiguous on one CUDA device.  Each level takes the semantics
-    `ops.lk.level_table` gives it, with the last-step gate of each: 0.1 px
-    (TPU kernel) or 10·eps (vmapped reference).
-
-    Returns (pts1 (N,2), ok1 (N,), back (N,2), ok2 (N,)): ok1 carries the
-    mask, every forward level's ok and the in-bounds test; ok2 does the
-    same for the backward pass from pts1 with ok1 as its mask.  Enqueued on
-    the current stream without synchronising.  Raises on any other input.
-    """
-    name = "track_fb_cuda"
+def _pyramid_levels(name: str, pyr0, grads0, pyr1, grads1, pts0, mask,
+                    patch: int, iters: int):
+    """Checks of a multi-level launch; returns (images, shapes) as
+    `lmono_lk` takes them (frame 1's gradients None where `grads1` is)."""
     L = len(pyr0)
-    if not (len(grads0) == len(pyr1) == len(grads1) == L):
+    if not (len(grads0) == len(pyr1) == L
+            and (grads1 is None or len(grads1) == L)):
         raise ValueError(f"{name}: pyramids and gradients differ in levels")
     if not 1 <= L <= MAX_LEVELS:
         raise ValueError(f"{name} takes 1 to {MAX_LEVELS} levels, got {L}")
@@ -142,14 +133,53 @@ def track_fb_cuda(pyr0, grads0, pyr1, grads1, pts0: torch.Tensor,
     levels = level_table([tuple(p.shape) for p in pyr0], patch)
     images, shapes = [], []
     for lvl, lv in enumerate(levels):
-        imgs = (pyr0[lvl], *grads0[lvl], pyr1[lvl], *grads1[lvl])
+        g1 = (None, None) if grads1 is None else tuple(grads1[lvl])
+        imgs = (pyr0[lvl], *grads0[lvl], pyr1[lvl], *g1)
         if len(imgs) != 6:
             raise ValueError(f"{name}: each gradient entry must be (ix, iy)")
         _check_level(imgs, lv.H, lv.W, dev, name)
         images += imgs
         shapes += [lv.H, lv.W, int(lv.pallas)]
+    return images, shapes
+
+
+def track_fb_cuda(pyr0, grads0, pyr1, grads1, pts0: torch.Tensor,
+                  mask: torch.Tensor, patch: int, iters: int, eps: float):
+    """Forward-backward pyramidal LK in one launch: pyr0/pyr1 are lists of
+    L (H,W) f32 levels (finest first), grads0/grads1 lists of (ix, iy) of
+    the same shapes, pts0 (N,2) f32 in level-0 pixels, mask (N,) bool, all
+    contiguous on one CUDA device.  Each level takes the semantics
+    `ops.lk.level_table` gives it, with the last-step gate of each: 0.1 px
+    (TPU kernel) or 10·eps (vmapped reference).
+
+    Returns (pts1 (N,2), ok1 (N,), back (N,2), ok2 (N,)): ok1 carries the
+    mask, every forward level's ok and the in-bounds test; ok2 does the
+    same for the backward pass from pts1 with ok1 as its mask.  Enqueued on
+    the current stream without synchronising.  Raises on any other input.
+    """
+    images, shapes = _pyramid_levels("track_fb_cuda", pyr0, grads0, pyr1,
+                                     grads1, pts0, mask, patch, iters)
     return _launch(images, shapes, pts0, None, mask, patch, iters,
                    _PALLAS_STEP_THRESH, eps * 10.0, backward=True, inb=True)
+
+
+def track_pyramid_cuda(pyr0, grads0, pyr1, pts0: torch.Tensor,
+                       mask: torch.Tensor, patch: int, iters: int, eps: float
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One-way pyramidal LK in one launch (`ops.lk.track_pyramid_plain`'s
+    semantics): the inputs of `track_fb_cuda` without frame 1's gradients,
+    which a one-way track never reads.
+
+    Returns (pts1 (N,2), ok (N,)): ok carries the mask, every level's ok and
+    the in-bounds test on level 0.  Enqueued on the current stream without
+    synchronising.  Raises on any other input.
+    """
+    images, shapes = _pyramid_levels("track_pyramid_cuda", pyr0, grads0, pyr1,
+                                     None, pts0, mask, patch, iters)
+    pt1, ok, _, _ = _launch(images, shapes, pts0, None, mask, patch, iters,
+                            _PALLAS_STEP_THRESH, eps * 10.0, backward=False,
+                            inb=True)
+    return pt1, ok
 
 
 def lk_level_cuda(img0: torch.Tensor, ix0: torch.Tensor, iy0: torch.Tensor,

@@ -12,8 +12,10 @@ differ at borders, in the inverse and in the ok gate (see `csrc/lk.cu`).
 `level_table` holds that rule.  `track_fb` runs CUDA tensors through one
 launch of the hand-written kernel (`ops/cuda/lk.py`: every level, both
 directions) and CPU tensors through `track_fb_plain`, the same chain of
-`lk_level_plain` calls (`track_pyramid_plain` each way), with no fallback:
-the kernel raises instead.
+`lk_level_plain` calls (`track_pyramid_plain` each way); `track_pyramid`,
+the one-way track (the stereo match's), takes one launch of the same
+kernel over every level on CUDA tensors and `track_pyramid_plain` on CPU
+tensors.  There is no fallback: the kernel raises instead.
 """
 
 from __future__ import annotations
@@ -190,6 +192,20 @@ def track_pyramid_plain(pyr0: Sequence, grads0: Sequence, pyr1: Sequence,
     inb = ((guess[:, 0] > 1) & (guess[:, 0] < W - 2)
            & (guess[:, 1] > 1) & (guess[:, 1] < H - 2))
     return guess, ok & inb
+
+
+def track_pyramid(pyr0: Sequence, grads0: Sequence, pyr1: Sequence,
+                  pts0: torch.Tensor, mask: torch.Tensor, patch: int,
+                  iters: int, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """One-way pyramidal track of pts0 (N,2) from pyr0 to pyr1 (see
+    `track_pyramid_plain`): CUDA tensors take one kernel launch for every
+    level, CPU tensors `track_pyramid_plain`.  Only the first frame's
+    gradients are read."""
+    if pts0.is_cuda:
+        from lmono_tpu_torch.ops.cuda.lk import track_pyramid_cuda
+        return track_pyramid_cuda(pyr0, grads0, pyr1, pts0.contiguous(),
+                                  mask.contiguous(), patch, iters, eps)
+    return track_pyramid_plain(pyr0, grads0, pyr1, pts0, mask, patch, iters, eps)
 
 
 def _fb_gate(pts0, back, ok1, ok2, fb_thresh):

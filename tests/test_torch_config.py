@@ -77,7 +77,11 @@ def test_port_imports_no_jax():
         "lmono_tpu_torch.utils.checkpoint", "lmono_tpu_torch.run_kitti",
         "lmono_tpu_torch.camera.models", "lmono_tpu_torch.camera.factory",
         "lmono_tpu_torch.camera.calibration", "lmono_tpu_torch.eval_sweep",
-        "lmono_tpu_torch.intrinsic_calib",
+        "lmono_tpu_torch.intrinsic_calib", "lmono_tpu_torch.utils.groups",
+        "lmono_tpu_torch.utils.spline", "lmono_tpu_torch.estimator.stereo",
+        "lmono_tpu_torch.estimator.sfm", "lmono_tpu_torch.viz",
+        "lmono_tpu_torch.run_lidar_odometry", "lmono_tpu_torch.run_full_pipeline",
+        "lmono_tpu_torch.bench_loop_pr",
     ]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
