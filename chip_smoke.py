@@ -7,16 +7,19 @@ Drives the port's slices through their entry points,
 `LidarOdometry.process_chunk`, `FeatureTracker.process`,
 `FusedPipeline.process_chunk`, `SlamSystem.process_chunk`, `run_kitti.main`,
 `eval_sweep.run_preset`, the calibration functions, `stereo_match`,
-`global_sfm` and the `run_lidar_odometry`, `run_full_pipeline` and
-`bench_loop_pr` entry points, and checks every kernel on their paths
-against its plain PyTorch version:
+`global_sfm`, the `run_lidar_odometry`, `run_full_pipeline`,
+`bench_loop_pr` and `run_multihost` entry points and `SlamSystem` on a
+device mesh, and checks every kernel on their paths against its plain
+PyTorch version:
 
 1. device: the card, its power limit and the toolchain;
 2. build: compiles the CUDA kernels (`lmono_tpu_torch/csrc/knn.cu`, K1, and
    `lmono_tpu_torch/csrc/lk.cu`, K2), one `nvcc` each, started together;
 3. knn: K1 (one launch per call: a thread-block cluster splits the bank)
    against `knn_plain` at the odometry's shapes, the loop lane's LiDAR
-   refinement shapes (512×512 edge, 1024×1024 planar) and a ragged case;
+   refinement shapes (512×512 edge, 1024×1024 planar), a rank's shard of
+   the odometry's banks on a map=2 mesh (1536×16384, 4096×32768,
+   512×4096, 1024×8192) and a ragged case;
    exact-tie cases (at 1536×32768 and at both loop-lane shapes) with bank
    points duplicated across the kernel's warp slices and cluster ranks and
    masked rows among them, whose index lists must equal the plain
@@ -144,14 +147,35 @@ against its plain PyTorch version:
    `bench_loop_pr.main` at its default 78 keyframes: no false positive and
    recall at least 0.85, reported beside the JAX package's own record
    (`LOOP_PR.json`, not a card number).
+15. mesh: the device-mesh engine, its ranks spawned by the script
+   (`parallel/launch.py:run_ranks`, after the build, so none builds), all
+   on cuda:0 over gloo.  `run_multihost.main()`: "ba", the 64-node
+   drifted circuit's pose graph on 8 ranks, each within
+   max(0.05 · correction, 1 mm) of the single-rank `optimize_posegraph`;
+   "engine", `dist_fused_step` on a (kf=4, map=2) mesh over 14 frames,
+   each rank within 5 mm of the single-rank `FusedPipeline`, K1 at least
+   once a frame on every rank, no plain call, the per-frame collective
+   bytes printed.  Then system-mesh: `SlamSystem.process_chunk` at
+   `kitti_scale_config()` on a (kf=2, map=2) mesh of 4 ranks, loop and map
+   on, over the first MESH_FRAMES (40) frames of system-kitti's drive,
+   against system-kitti's own run (its `keep` snapshot):
+   tests/test_dist_engine.py's gates (pose gap < 5 mm on every frame, the
+   same keyframe flags, DB count equal and > 0, the odometry banks
+   concatenated over map bitwise equal, colored-map slot agreement > 99%
+   and > 95% of same-slot points within 2 cm); on every rank 2 K1
+   launches per outer iteration and frame at the shard shapes and per
+   outer refinement iteration per processed keyframe, 1 K2 launch a frame,
+   no plain call; frames/s beside system-kitti's (4 ranks sharing one
+   H100 over gloo: not a scaling number) and the bytes each axis's
+   collectives moved per frame.
 
 The plain versions and library calls that take over YARD_MS a call are
 timed over YARD_REPS runs of YARD_CALLS calls (the kernels over 20 × 5).
 
 Prints one JSON line of kernel results (time, launches on system-kitti and
-launches per frame on every path, bound, plain and library times, and K1's
-loop-lane shapes), the elapsed seconds on an earlier line, the `nvidia-smi`
-name and power limit, and last `{"ok": true, "device": {...}}`.  Any failed check raises,
+launches per frame on every path, the mesh's included, bound, plain and
+library times, and K1's loop-lane and mesh shard shapes), the elapsed
+seconds on an earlier line, the `nvidia-smi` name and power limit, and last `{"ok": true, "device": {...}}`.  Any failed check raises,
 so the exit code is non-zero and the last line is not printed.  Needs a
 CUDA device; imports nothing of JAX.
 """
@@ -191,6 +215,10 @@ KNN_GAP = 1e-4            # index sets compared where d²_(k+1) − d²_k exceed
 KNN_CASES = [(1536, 32768, 0.9), (4096, 65536, 0.9), (512, 8192, 0.9),
              (1024, 16384, 0.9), (512, 512, 0.9), (1024, 1024, 0.9),
              (777, 3001, 3.0 / 3001)]
+# the odometry's banks split over map = 2 (a rank's shard): kitti edge and
+# plane, synthetic edge and plane
+KNN_SHARD_SHAPES = [(1536, 16384), (4096, 32768), (512, 4096), (1024, 8192)]
+KNN_CASES += [(Q, M, 0.9) for Q, M in KNN_SHARD_SHAPES]
 # the loop lane's LiDAR refinement: a keyframe's 512 edge / 1024 planar
 # features against the candidate's banks of the same sizes (config.py:209-211)
 KNN_LOOP_SHAPES = [(512, 512), (1024, 1024)]
@@ -306,6 +334,17 @@ EX_PIPELINE_FRAMES = 30
 SPLINE_CPU_ATOL = 1e-5        # pose_bspline_resample, card against CPU
 LOOP_PR_MAX_FALSE_POSITIVES = 0
 LOOP_PR_RECALL_GATE = 0.85
+# mesh: the device-mesh engine, its ranks sharing the card over gloo.
+# system-mesh runs SlamSystem on a (kf, map) = MESH_SHAPE mesh over the
+# first MESH_FRAMES frames of system-kitti's drive, held to
+# tests/test_dist_engine.py:156-200's gates against system-kitti's own run
+MESH_SHAPE = (2, 2)
+MESH_FRAMES = 40
+MESH_POSE_GATE_M = 5e-3
+MESH_SLOT_AGREE = 0.99        # colored-map slots occupied alike
+MESH_POINT_AGREE = 0.95       # same-slot points within MESH_POINT_TOL_M
+MESH_POINT_TOL_M = 2e-2
+MESH_TIMEOUT_S = 420          # the spawned ranks' time limit, spawn to join
 
 
 def say(phase: str, **kv) -> None:
@@ -1065,8 +1104,22 @@ def _closure_errors(system, traj, T_CL) -> dict:
             "w": g.loop_w[:L].cpu(), "on": g.loop_mask[:L].cpu()}
 
 
+def _system_snapshot(system, outs: list, chunk_s: list) -> dict:
+    """What system-mesh holds its run to: the per-frame outputs so far, the
+    odometry banks, the DB count, the colored map, on the host."""
+    odo = system.front.state.odo
+    cmap = system.mapper._global_map()
+    return {"pose_t": torch.cat([o["pose_t"] for o in outs]).cpu(),
+            "is_keyframe": torch.cat([o["is_keyframe"] for o in outs]).cpu(),
+            "initialized": torch.cat([o["initialized"] for o in outs]).cpu(),
+            "edge_map": tuple(x.cpu() for x in odo.edge_map),
+            "plane_map": tuple(x.cpu() for x in odo.plane_map),
+            "db_count": system.loop.count, "n_loops": system.n_loops,
+            "cmap": tuple(x.cpu() for x in cmap), "chunk_s": list(chunk_s)}
+
+
 def system_phase(name: str, cfg, dev, seed: int, observe=None,
-                 n_frames: int = SYS_FRAMES) -> dict:
+                 n_frames: int = SYS_FRAMES, keep: int = 0) -> dict:
     """`SlamSystem.process_chunk` with loop and map on over n_frames
     frames made on the card chunk by chunk (only `process_chunk` is on the
     fps clock), the estimator seeded with the rig's extrinsic, as
@@ -1074,7 +1127,9 @@ def system_phase(name: str, cfg, dev, seed: int, observe=None,
     K1's launches are counted apart in the loop lane (around each
     `LoopDetector.process_keyframe`) and in the odometry (the rest).
     observe: called with the system once it is made (`chip_perf.py`
-    records its graph lane through it)."""
+    records its graph lane through it).  keep: a frame count (a multiple of
+    CHUNK); the result's "keep" holds the system's state after that many
+    frames (`_system_snapshot`), for system-mesh."""
     from lmono_tpu_torch.eval.ate import ate_rmse
     from lmono_tpu_torch.eval.kitti_metrics import kitti_odometry_errors
     from lmono_tpu_torch.io.synthetic import synthetic_T_CL
@@ -1108,15 +1163,21 @@ def system_phase(name: str, cfg, dev, seed: int, observe=None,
     knn_mod.knn_plain_calls = lk_mod.lk_plain_calls = 0
     est_readbacks = 0
     t_proc = 0.0
+    kept, chunk_s, snapshot = [], [], None
     for c in range(n_chunks):
         chunk = make(c * CHUNK)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs = system.process_chunk(chunk, t0=c * CHUNK * 0.1)
         torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
         if c >= WARMUP_CHUNKS:
-            t_proc += time.perf_counter() - t0
+            t_proc += chunk_s[-1]
         est_readbacks += int(outs["readbacks"].sum())
+        if (c + 1) * CHUNK <= keep:
+            kept.append(outs)
+            if (c + 1) * CHUNK == keep:
+                snapshot = _system_snapshot(system, kept, chunk_s)
     t0 = time.perf_counter()
     system._reap_loops()
     torch.cuda.synchronize()
@@ -1189,7 +1250,7 @@ def system_phase(name: str, cfg, dev, seed: int, observe=None,
     return {"fps": fps, "ate": ate, "knn_launches": knn_launches,
             "lk_launches": lk_launches, "knn_per_frame": knn_launches / n_frames,
             "lk_per_frame": lk_launches / n_frames,
-            "loop_knn_per_keyframe": loop_knn / kfs}
+            "loop_knn_per_keyframe": loop_knn / kfs, "keep": snapshot}
 
 
 def _counted_loop_knn():
@@ -2018,6 +2079,198 @@ def examples_phase(dev) -> dict:
     return out
 
 
+def _mesh_system_rank(rank: int, world: int, seed: int, n_frames: int) -> dict:
+    """One rank of system-mesh: `SlamSystem.process_chunk` at
+    `kitti_scale_config()` on the MESH_SHAPE mesh over the first n_frames
+    frames of system-kitti's drive (the same seed, made on the card by each
+    rank alike); returns this rank's outputs, shards and counts on the
+    host."""
+    from lmono_tpu_torch.config import ParallelConfig, kitti_scale_config
+    from lmono_tpu_torch.io.synthetic import synthetic_T_CL
+    from lmono_tpu_torch.ops import knn as knn_mod
+    from lmono_tpu_torch.ops import lk as lk_mod
+    from lmono_tpu_torch.ops.cuda import knn as knn_cuda_mod
+    from lmono_tpu_torch.ops.cuda import lk as lk_cuda_mod
+    from lmono_tpu_torch.pipeline import SlamSystem
+
+    dev = torch.device("cuda", 0)
+    kf, mp = MESH_SHAPE
+    T_CL = synthetic_T_CL(device=dev)
+    cfg = kitti_scale_config().replace(
+        laser_to_camera=tuple(T_CL.to_mat4().reshape(-1).tolist()),
+        parallel=ParallelConfig(kf_shards=kf, map_shards=mp))
+    make, _ = _chunk_maker(cfg.lidar, dev, seed, SYS_FRAMES, camera=cfg.camera)
+    system = SlamSystem(cfg, device=dev)
+    loop_knn = 0
+    keyframe_step = system.loop.process_keyframe
+
+    def counted_keyframe_step(*args, **kwargs):
+        nonlocal loop_knn
+        before = knn_cuda_mod.knn_kernel_launches
+        out = keyframe_step(*args, **kwargs)
+        loop_knn += knn_cuda_mod.knn_kernel_launches - before
+        return out
+
+    system.loop.process_keyframe = counted_keyframe_step
+    knn_cuda_mod.knn_kernel_launches = lk_cuda_mod.lk_kernel_launches = 0
+    knn_mod.knn_plain_calls = lk_mod.lk_plain_calls = 0
+    system.mesh.reset_stats()
+    outs, chunk_s = [], []
+    for c in range(n_frames // CHUNK):
+        chunk = make(c * CHUNK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(system.process_chunk(chunk, t0=c * CHUNK * 0.1))
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+    odo = system.front.state.odo
+    return {"coords": system.mesh.coords, "device": str(outs[0]["pose_t"].device),
+            "pose_t": torch.cat([o["pose_t"] for o in outs]).cpu(),
+            "is_keyframe": torch.cat([o["is_keyframe"] for o in outs]).cpu(),
+            "edge_map": tuple(x.cpu() for x in odo.edge_map),
+            "plane_map": tuple(x.cpu() for x in odo.plane_map),
+            "cmap": tuple(x.cpu() for x in system.mapper.map),
+            "db_count": system.loop.count, "n_loops": system.n_loops,
+            "db_rows": system.loop.db.valid.shape[0],
+            "keyframes_processed": system.keyframes_processed,
+            "knn_launches": knn_cuda_mod.knn_kernel_launches, "loop_knn": loop_knn,
+            "lk_launches": lk_cuda_mod.lk_kernel_launches,
+            "plain": (knn_mod.knn_plain_calls, lk_mod.lk_plain_calls),
+            "knn_shapes": [(cfg.lidar.max_edge_features, odo.edge_map.points.shape[0]),
+                           (cfg.lidar.max_planar_features, odo.plane_map.points.shape[0])],
+            "stats": system.mesh.collective_stats(), "chunk_s": chunk_s,
+            "stage_s": {k: v["total_s"] for k, v in system.timer.summary().items()},
+            "n_outer": max(1, (cfg.lidar.scan_to_map_iters + 1) // 2),
+            "n_refine": max(1, (cfg.loop.refine_iters + 1) // 2)}
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _mesh_gates(name: str, ranks: list, ref: dict) -> dict:
+    """system-mesh's gates (tests/test_dist_engine.py:156-200) against
+    system-kitti's own first frames; returns the report's numbers."""
+    kf, mp = MESH_SHAPE
+    gap = max(float(torch.linalg.vector_norm(r["pose_t"] - ref["pose_t"], dim=-1).max())
+              for r in ranks)
+    if not gap < MESH_POSE_GATE_M:
+        raise AssertionError(f"{name}: pose gap {gap} m over {MESH_POSE_GATE_M} m")
+    for r in ranks:
+        if not torch.equal(r["is_keyframe"], ref["is_keyframe"]):
+            raise AssertionError(f"{name}: rank {r['coords']} keyframe flags differ")
+        if not r["device"].startswith("cuda"):
+            raise AssertionError(f"{name}: rank {r['coords']} ran on {r['device']}")
+        if r["db_count"] != ref["db_count"] or r["db_count"] < 1:
+            raise AssertionError(f"{name}: DB count {r['db_count']} vs {ref['db_count']}")
+    # the shards of each kf row, concatenated over map, against the single
+    # rank's banks bit for bit; every kf row holds the same shards
+    rows = [sorted((r for r in ranks if r["coords"]["kf"] == k),
+                   key=lambda r: r["coords"]["map"]) for k in range(kf)]
+    for bank in ("edge_map", "plane_map"):
+        for i in range(2):
+            want = _bits(ref[bank][i])
+            for row in rows:
+                got = _bits(torch.cat([r[bank][i] for r in row]))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{name}: {bank} differs from the single "
+                                         "rank's (bitwise)")
+    cm = [torch.cat([r["cmap"][i] for r in rows[0]]) for i in range(3)]
+    m1, m2 = ref["cmap"][2], cm[2]
+    slot_agree = float((m1 == m2).float().mean())
+    both = m1 & m2
+    close = float((torch.linalg.vector_norm(ref["cmap"][0][both] - cm[0][both], dim=-1)
+                   < MESH_POINT_TOL_M).float().mean())
+    if not (slot_agree > MESH_SLOT_AGREE and close > MESH_POINT_AGREE):
+        raise AssertionError(f"{name}: colored map slot agreement {slot_agree}, "
+                             f"same-slot points within {MESH_POINT_TOL_M} m {close}")
+    return {"gap": gap, "slot_agree": slot_agree, "close": close,
+            "map_points": int(m2.sum())}
+
+
+def mesh_phase(dev, seed: int, ref: dict) -> dict:
+    """Phase 15: `run_multihost.main()` on the card (its "ba" and "engine"
+    phases with their gates), then system-mesh against system-kitti's
+    first MESH_FRAMES frames (`ref`, its `keep` snapshot).  Every rank
+    shares cuda:0 over gloo; the kernels were built before the ranks are
+    spawned, so none of them builds."""
+    from lmono_tpu_torch import run_multihost
+    from lmono_tpu_torch.parallel.launch import run_ranks
+
+    t_start = time.perf_counter()
+    mh = run_multihost.main(["--device", "cuda", "--timeout", str(MESH_TIMEOUT_S)])
+    t_mh = time.perf_counter() - t_start
+    for phase, results in mh.items():
+        for r, res in enumerate(results):
+            if not res["device"].startswith("cuda"):
+                raise AssertionError(f"run_multihost {phase}: rank {r} on {res['device']}")
+    eng = mh["engine"]
+    n_eng = eng[0]["frames"]
+    for r, res in enumerate(eng):
+        if res["knn_plain_calls"] or res["knn_launches"] < n_eng:
+            raise AssertionError(f"run_multihost engine: rank {r} made "
+                                 f"{res['knn_launches']} K1 launches and "
+                                 f"{res['knn_plain_calls']} plain calls in {n_eng} frames")
+    eng_knn = [res["knn_launches"] / n_eng for res in eng]
+    say("mesh-multihost", seconds=f"{t_mh:.1f}",
+        ba_gap_m_max=f"{max(r['gap_m'] for r in mh['ba']):.3e}",
+        ba_correction_m=f"{mh['ba'][0]['correction_m']:.4f}",
+        engine_gap_m_max=f"{max(r['gap_m'] for r in eng):.3e}",
+        engine_frames=n_eng, engine_knn_per_frame_per_rank=",".join(
+            f"{x:.2f}" for x in eng_knn),
+        engine_seconds_per_frame=f"{eng[0]['seconds'] / n_eng:.3f}",
+        note="8 ranks sharing one H100 over gloo: not a scaling number")
+
+    kf, mp = MESH_SHAPE
+    t1 = time.perf_counter()
+    ranks = run_ranks(_mesh_system_rank, kf * mp, (seed, MESH_FRAMES),
+                      timeout_s=MESH_TIMEOUT_S)
+    t_sys = time.perf_counter() - t1
+    name = "system-mesh"
+    report = _mesh_gates(name, ranks, ref)
+    for r in ranks:
+        n_outer, n_refine, kfs = r["n_outer"], r["n_refine"], r["keyframes_processed"]
+        odo_knn = r["knn_launches"] - r["loop_knn"]
+        if odo_knn != 2 * n_outer * MESH_FRAMES:
+            raise AssertionError(f"{name}: rank {r['coords']}: {odo_knn} odometry K1 "
+                                 f"launches, expected {2 * n_outer * MESH_FRAMES}")
+        if r["loop_knn"] != 2 * n_refine * kfs:
+            raise AssertionError(f"{name}: rank {r['coords']}: {r['loop_knn']} loop-lane "
+                                 f"K1 launches for {kfs} keyframes")
+        if r["lk_launches"] != MESH_FRAMES or r["plain"] != (0, 0):
+            raise AssertionError(f"{name}: rank {r['coords']}: {r['lk_launches']} K2 "
+                                 f"launches, {r['plain']} plain calls")
+    r0 = ranks[0]
+    # frames/s over the second chunk (the first warms up), as system-kitti's
+    mesh_fps = CHUNK / max(r["chunk_s"][1] for r in ranks)
+    ref_fps = CHUNK / ref["chunk_s"][1]
+    per_frame = {a: {k: v[1] / MESH_FRAMES for k, v in st.items()}
+                 for a, st in r0["stats"].items()}
+    calls = {a: {k: v[0] / MESH_FRAMES for k, v in st.items()}
+             for a, st in r0["stats"].items()}
+    say(name, frames=MESH_FRAMES, mesh=f"kf={kf},map={mp}",
+        pose_gap_m_max=f"{report['gap']:.3e}", keyframe_flags="equal",
+        db_count=r0["db_count"], db_rows_per_rank=r0["db_rows"],
+        banks="bitwise equal", colored_map_slot_agreement=f"{report['slot_agree']:.6f}",
+        same_slot_points_within_2cm=f"{report['close']:.6f}",
+        map_points=report["map_points"],
+        knn_shard_shapes=",".join(f"{q}x{m}" for q, m in r0["knn_shapes"]),
+        knn_per_frame_per_rank=f"{(r0['knn_launches'] - r0['loop_knn']) / MESH_FRAMES:.3f}",
+        loop_knn_per_keyframe=f"{r0['loop_knn'] / max(r0['keyframes_processed'], 1):.3f}",
+        lk_per_frame=f"{r0['lk_launches'] / MESH_FRAMES:.3f}",
+        fps=f"{mesh_fps:.3f}", single_rank_fps=f"{ref_fps:.3f}",
+        fps_note=f"{kf * mp} ranks sharing one H100 over gloo: not a scaling number",
+        collective_bytes_per_frame=json.dumps(per_frame, separators=(",", ":")),
+        collectives_per_frame=json.dumps(calls, separators=(",", ":")),
+        stage_seconds=",".join(f"{k}:{v:.2f}" for k, v in r0["stage_s"].items()),
+        seconds=f"{t_sys:.1f}")
+    return {"seconds": time.perf_counter() - t_start,
+            "knn_per_frame": (r0["knn_launches"] - r0["loop_knn"]) / MESH_FRAMES,
+            "lk_per_frame": r0["lk_launches"] / MESH_FRAMES,
+            "loop_knn_per_keyframe": r0["loop_knn"] / max(r0["keyframes_processed"], 1),
+            "engine_knn_per_frame": min(eng_knn), "shapes": r0["knn_shapes"]}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     name = device_phase()
@@ -2042,7 +2295,8 @@ def main() -> None:
     say("time", after="pipelines", seconds=f"{time.perf_counter() - t_start:.1f}")
     sys_synthetic = system_phase("system-synthetic", synthetic_config(), dev, seed=700,
                                  n_frames=SYS_SYN_FRAMES)
-    sys_kitti = system_phase("system-kitti", kitti_scale_config(), dev, seed=800)
+    sys_kitti = system_phase("system-kitti", kitti_scale_config(), dev, seed=800,
+                             keep=MESH_FRAMES)
     say("time", after="systems", seconds=f"{time.perf_counter() - t_start:.1f}")
     files = kitti_files_phase(dev, seed=900, chunked_fps=sys_kitti["fps"])
     say("time", after="kitti-files", phase_seconds=f"{files['seconds']:.1f}",
@@ -2060,6 +2314,9 @@ def main() -> None:
         sfm_seconds=f"{sfm['seconds']:.1f}", examples_seconds=f"{examples['seconds']:.1f}",
         new_phases_seconds=f"{time.perf_counter() - t_new:.1f}",
         seconds=f"{time.perf_counter() - t_start:.1f}")
+    mesh = mesh_phase(dev, 800, sys_kitti["keep"])
+    say("time", after="mesh", phase_seconds=f"{mesh['seconds']:.1f}",
+        seconds=f"{time.perf_counter() - t_start:.1f}")
     loop_shapes = {f"{Q}x{M}": knn["shapes"][(Q, M)] for Q, M in KNN_LOOP_SHAPES}
     print(json.dumps({"kernels": [{
         "name": "knn", "route": "cuda",
@@ -2075,11 +2332,17 @@ def main() -> None:
                                "kitti-files": files["knn_per_frame"],
                                "calib-online": calib["knn_per_frame"],
                                "run_lidar_odometry": examples["knn_per_frame_odometry"],
-                               "run_full_pipeline": examples["knn_per_frame_pipeline"]},
+                               "run_full_pipeline": examples["knn_per_frame_pipeline"],
+                               "system-mesh (per rank)": mesh["knn_per_frame"],
+                               "run_multihost engine (per rank, least)":
+                                   mesh["engine_knn_per_frame"]},
+        "mesh_shard_shapes": {f"{Q}x{M}": knn["shapes"][(Q, M)]
+                              for Q, M in KNN_SHARD_SHAPES},
         "loop_lane_launches_per_keyframe": {
             "system-kitti": sys_kitti["loop_knn_per_keyframe"],
             "system-synthetic": sys_synthetic["loop_knn_per_keyframe"],
-            "kitti-files": files["loop_knn_per_keyframe"]},
+            "kitti-files": files["loop_knn_per_keyframe"],
+            "system-mesh (per rank)": mesh["loop_knn_per_keyframe"]},
         "loop_lane_shapes": loop_shapes,
         "max_abs_err": knn["max_abs_err"],
         "ms": knn["ms"], "plain_ms": knn["plain_ms"],
@@ -2097,7 +2360,8 @@ def main() -> None:
                                "system-synthetic": sys_synthetic["lk_per_frame"],
                                "kitti-files": files["lk_per_frame"],
                                "calib-online": calib["lk_per_frame"],
-                               "run_full_pipeline": examples["lk_per_frame_pipeline"]},
+                               "run_full_pipeline": examples["lk_per_frame_pipeline"],
+                               "system-mesh (per rank)": mesh["lk_per_frame"]},
         "stereo": {"shapes": f"{STEREO_LEVELS} levels of a 1241x376 pair, "
                              f"{STEREO_CORNERS} slots, one way",
                    "launches_per_stereo_match": stereo["launches_per_match"],

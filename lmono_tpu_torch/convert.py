@@ -8,6 +8,13 @@ frame's tracks and laser pose), the loop lane's keyframe DB, pose graph and
 host gates, the dense map's active bank, and the configuration.
 Both arrive here as plain data (numpy arrays, JSON), so this module needs
 neither JAX nor `lmono_tpu`.
+
+On a device mesh each rank holds its part of the state: the `*_shard_*`
+functions convert a JAX global state and keep this rank's blocks under the
+port's spec trees (`parallel/dist_engine.py`, `dist_loop.py`,
+`dist_posegraph.py`): the odometry banks and the colored map split over
+"map", the feature table, the keyframe DB and the pose-graph nodes over
+"kf".
 """
 
 from __future__ import annotations
@@ -175,3 +182,43 @@ def loop_detector_from_numpy(det, ref, device=None) -> None:
 def config_from_json(s: str) -> SystemConfig:
     """A configuration written by either package's `SystemConfig.to_json`."""
     return SystemConfig.from_json(s)
+
+
+# --------------------------------------------------------------------------
+# This rank's part on a device mesh
+# --------------------------------------------------------------------------
+
+def fused_state_shard_from_numpy(tree, mesh, device=None) -> tuple[FusedState, int]:
+    """`fused_state_from_numpy`, cut to this rank's part under
+    `dist_engine.fused_specs` (banks over "map", feature rows over "kf")."""
+    from lmono_tpu_torch.parallel.dist_engine import fused_specs
+    from lmono_tpu_torch.parallel.mesh import put_sharded
+
+    state, frame = fused_state_from_numpy(tree, device)
+    return put_sharded(mesh, state, fused_specs()), frame
+
+
+def keyframe_db_shard_from_numpy(tree, mesh, device=None,
+                                 axis: str = "kf") -> tuple[KeyframeDB, int]:
+    """`keyframe_db_from_numpy`, this rank's DB slots over `axis`."""
+    from lmono_tpu_torch.parallel.dist_loop import put_db_sharded
+
+    db, count = keyframe_db_from_numpy(tree, device)
+    return put_db_sharded(mesh, db, axis), count
+
+
+def posegraph_shard_from_numpy(tree, mesh, device=None,
+                               axis: str = "kf") -> tuple[PoseGraph, int, int]:
+    """`posegraph_from_numpy`, this rank's node block over `axis` (loop
+    edges replicated)."""
+    from lmono_tpu_torch.parallel.dist_posegraph import graph_shardings
+
+    g, n_nodes, n_loops = posegraph_from_numpy(tree, device)
+    return graph_shardings(mesh, g, axis), n_nodes, n_loops
+
+
+def colormap_shard_from_numpy(tree, mesh, device=None) -> ColorMap:
+    """`colormap_from_numpy`, this rank's slot range over "map"."""
+    from lmono_tpu_torch.parallel.mesh import shard_leading
+
+    return shard_leading(mesh, colormap_from_numpy(tree, device), "map")

@@ -22,6 +22,22 @@ over ready, full and is_kf).  Here:
   come back in one read, else `is_kf` alone, once per full frame;
 * the LM loop reads its `done` flag once per attempt (`solver.py`).
 
+With `axis` (a mesh `Axis`, `parallel/mesh.py`) the feature table's rows
+are this rank's block and the rest is replicated: the new-row placement
+and the keyframe test psum their few global values, as in the JAX package.
+From DIST_WINDOW_CROSSOVER shards up the window solve is the
+landmark-sharded LM (`parallel/dist_window.py`) and marginalization psums
+its reduced system.  Below it a full window's table is gathered once, and
+the dense solve, the outlier test, marginalization and the slide run on
+it alike on every rank, each keeping its own rows back; the gathered
+table after the slide comes out in `FusionOutput.feats_gathered`.  The
+JAX package gathers for the solve alone there and psums the
+marginalization: on a (2, 2) mesh at the mesh tests' widths, on the CPU,
+the reassociated prior moved the extrinsic and the dense colored map kept
+97.85% of its slots alike (the gate is 99%), where the whole-table step
+gives the single-device result.  Every branch the host takes follows
+from psum'd or replicated values, so the ranks stay in step.
+
 `FusionOutput` carries the host counts `lm_attempts` and `readbacks`.  The
 hand-eye correspondence gather `corr @ prev_norm` stays the reference's
 one-hot matmul: exact with TF32 off, as the package sets it.
@@ -29,7 +45,7 @@ one-hot matmul: exact with TF32 off, as the package sets it.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -45,7 +61,8 @@ from lmono_tpu_torch.estimator.initializer import (
 from lmono_tpu_torch.estimator.marginalization import marginalize_oldest
 from lmono_tpu_torch.estimator.solver import outlier_rejection, solve_window
 from lmono_tpu_torch.estimator.tracker import TrackOutput
-from lmono_tpu_torch.estimator.window import WindowState, tree_where
+from lmono_tpu_torch.estimator.window import FeatureTable, WindowState, tree_where
+from lmono_tpu_torch.parallel.mesh import all_gather_rows
 from lmono_tpu_torch.ops.ransac import gumbel_noise
 from lmono_tpu_torch.utils.lie import (
     Pose,
@@ -55,6 +72,12 @@ from lmono_tpu_torch.utils.lie import (
     quat_normalize,
     quat_rotate,
 )
+
+
+# Landmark-sharded window-solve crossover, measured by the JAX package on its
+# 8-way CPU mesh (sharded/dense time 2.6x at 1 shard, 1.13x at 2, 0.29x at
+# 4).  Below this many shards the gathered dense solve runs instead.
+DIST_WINDOW_CROSSOVER = 4
 
 
 class EstimatorState(NamedTuple):
@@ -91,6 +114,9 @@ class FusionOutput(NamedTuple):
     keyframe_slot: int         # window slot of the newest frame
     lm_attempts: int           # LM attempts of this frame's solve (0: none)
     readbacks: int             # device values the host read this frame
+    # the whole feature table after the slide, where the step gathered it
+    # (a mesh below DIST_WINDOW_CROSSOVER, a full window), else None
+    feats_gathered: Optional[FeatureTable] = None
 
 
 def _enter_frame(w: WindowState, laser: Pose, count: int
@@ -137,11 +163,16 @@ def _sanitize(w: WindowState, laser: Pose, count: int) -> Pose:
     return Pose(torch.where(sane, laser.t, cv_t), torch.where(sane, laser.q, cv_q))
 
 
-def _solve(w: WindowState, cfg: EstimatorConfig):
+def _solve(w: WindowState, cfg: EstimatorConfig, axis=None):
     """Triangulate, solve, keep the laser-propagated window if the solve is
     not finite, reject outliers; returns (window, cost, SolveDiag)."""
     w = fm.triangulate(w, cfg)
-    w2, diag = solve_window(w, cfg)
+    if axis is None:
+        w2, diag = solve_window(w, cfg)
+    else:
+        # imported here: dist_window imports the estimator package
+        from lmono_tpu_torch.parallel.dist_window import _lm_loop
+        w2, diag = _lm_loop(w, cfg, axis)
     healthy = (torch.all(torch.isfinite(w2.t)) & torch.all(torch.isfinite(w2.q))
                & torch.isfinite(diag.cost1))
     w2 = outlier_rejection(tree_where(healthy, w2, w), cfg)
@@ -156,13 +187,15 @@ def _solve(w: WindowState, cfg: EstimatorConfig):
 
 def fusion_step(state: EstimatorState, track: TrackOutput, laser: Pose,
                 cfg: EstimatorConfig, count: int,
-                gumbel: torch.Tensor | None = None
+                gumbel: torch.Tensor | None = None, axis=None
                 ) -> tuple[EstimatorState, FusionOutput]:
     """One frame into the window.
 
     count: the host copy of `state.window.count` (frames in the window
     before this one).  gumbel: (RP_ITERS, 8, N) Gumbel noise of the
-    relative-pose RANSAC, needed only when estimate_laser == 2.
+    relative-pose RANSAC, needed only when estimate_laser == 2.  axis: the
+    landmark axis over which `state.window.feats` is sharded (module
+    docstring); the track, laser pose and noise are replicated.
     """
     w1 = cfg.window_size + 1
     wprev = state.window
@@ -170,9 +203,9 @@ def fusion_step(state: EstimatorState, track: TrackOutput, laser: Pose,
     w, slot = _enter_frame(wprev, laser, count)
 
     # ---- features in
-    feats = fm.ingest_observations(w.feats, track, slot)
+    feats = fm.ingest_observations(w.feats, track, slot, axis=axis)
     w = w._replace(feats=feats)
-    is_kf = fm.keyframe_check(feats, slot, cfg)
+    is_kf = fm.keyframe_check(feats, slot, cfg, axis=axis)
 
     # ---- hand-eye extrinsic rotation (estimate_laser == 2)
     he = state.handeye
@@ -203,10 +236,18 @@ def fusion_step(state: EstimatorState, track: TrackOutput, laser: Pose,
             kf, ready = bool(is_kf), True
         readbacks += 1
 
+    # below the crossover the rest of a full window's step runs on the
+    # whole table, gathered once
+    m = w.feats.ids.shape[0]
+    whole = full and axis is not None and axis.size < DIST_WINDOW_CROSSOVER
+    if whole:
+        w = w._replace(feats=all_gather_rows(axis, w.feats))
+    win_axis = None if whole else axis
+
     attempts = 0
     cost = torch.zeros((), device=w.t.device)
     if ready:
-        w, cost, diag = _solve(w, cfg)
+        w, cost, diag = _solve(w, cfg, win_axis)
         attempts, readbacks = diag.iters, readbacks + diag.readbacks
 
     out_pose = Pose(w.t[slot], w.q[slot])
@@ -227,10 +268,14 @@ def fusion_step(state: EstimatorState, track: TrackOutput, laser: Pose,
     # ---- slide when full
     if full:
         if kf:
-            prior = marginalize_oldest(w, cfg)
+            prior = marginalize_oldest(w, cfg, axis=win_axis)
             w = fm.slide_old(w)._replace(prior=prior)
         else:
             w = fm.slide_new(w)
+    if whole:
+        i = axis.index
+        output = output._replace(feats_gathered=w.feats)
+        w = w._replace(feats=type(w.feats)(*(x[i * m:(i + 1) * m] for x in w.feats)))
 
     new_state = EstimatorState(
         window=w, handeye=he,

@@ -30,11 +30,17 @@ from lmono_tpu_torch.utils.lie import (
 
 
 def ingest_observations(feats: FeatureTable, out: TrackOutput,
-                        frame_slot: int) -> FeatureTable:
+                        frame_slot: int, axis=None) -> FeatureTable:
     """Insert this frame's tracked features into the table at `frame_slot`.
 
     Known ids update their slot; unknown ids claim free slots (anchor =
     frame_slot), the k-th new feature in tracker order the k-th free slot.
+
+    axis: a mesh `Axis` (landmark axis, "kf") over which the table's rows
+    are sharded, `out` replicated.  Two collectives give the single-device
+    allocation exactly: the psum'd "id already known" mask, and the free
+    rows of lower ranks (an all_gather of the per-rank counts), so the k-th
+    new feature still takes the k-th free row of the global table.
     """
     M = feats.ids.shape[0]
     N = out.ids.shape[0]
@@ -52,13 +58,20 @@ def ingest_observations(feats: FeatureTable, out: TrackOutput,
 
     # new features: tracker slots whose id is not in the table
     known = torch.any(match, dim=0)                                 # (N,)
-    is_new = out.alive & ~known & (out.ids >= 0)
     free = ~feats.alive
+    k = torch.arange(M, device=dev)
+    gk = k                                          # global rank of a free row
+    if axis is not None:
+        known = axis.psum(known) > 0
+        # free rows sort by global row index: this rank's first free row
+        # ranks after every free row of the lower ranks
+        n_free = axis.all_gather(torch.sum(free).reshape(1), 0, tiled=True)
+        gk = k + torch.sum(n_free[:axis.index])
+    is_new = out.alive & ~known & (out.ids >= 0)
     slot_order = torch.argsort((~free).to(torch.int32), stable=True)  # free first
     new_order = torch.argsort((~is_new).to(torch.int32), stable=True)  # new first
-    k = torch.arange(M, device=dev)
-    take = (k < torch.sum(is_new)) & (k < torch.sum(free))
-    src = new_order[torch.clamp(k, 0, N - 1)]                       # tracker idx
+    take = (gk < torch.sum(is_new)) & (k < torch.sum(free))
+    src = new_order[torch.clamp(gk, 0, N - 1)]                      # tracker idx
     dst = slot_order                                                # table idx
 
     # dst is a permutation of the table rows, so each row is written once
@@ -79,11 +92,12 @@ def ingest_observations(feats: FeatureTable, out: TrackOutput,
 
 
 def keyframe_check(feats: FeatureTable, frame_slot: int,
-                   cfg: EstimatorConfig) -> torch.Tensor:
+                   cfg: EstimatorConfig, axis=None) -> torch.Tensor:
     """Parallax keyframe gate (reference `featureCheck`): mean parallax
     between the two frames before the new one, over co-visible features;
     keyframe when above FEATURE_THRESHOLD px (virtual focal) or when
-    tracking is thin.  Returns a () bool tensor."""
+    tracking is thin.  Returns a () bool tensor.  axis: a landmark-sharded
+    table psums the two sums, so every rank takes the same decision."""
     j1 = max(frame_slot - 1, 0)
     j2 = max(frame_slot - 2, 0)
     co = feats.obs_mask[:, j1] & feats.obs_mask[:, j2] & feats.alive
@@ -91,6 +105,9 @@ def keyframe_check(feats: FeatureTable, frame_slot: int,
     par = torch.sqrt(torch.sum(d * d, dim=-1))
     n_co = torch.sum(co)
     sum_par = torch.sum(torch.where(co, par, 0.0))
+    if axis is not None:
+        n_co = axis.psum(n_co)
+        sum_par = axis.psum(sum_par)
     mean_par = sum_par / torch.clamp(n_co, min=1)
     thin = n_co < 20
     kf = thin | (mean_par * cfg.focal_length > cfg.feature_threshold)

@@ -37,9 +37,13 @@ def _eigh(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return nan[0], nan
 
 
-def marginalize_oldest(state: WindowState, cfg: EstimatorConfig) -> MargPrior:
+def marginalize_oldest(state: WindowState, cfg: EstimatorConfig,
+                       axis=None) -> MargPrior:
     """Compute the post-slide prior from marginalizing pose 0 (+ depths of
-    features anchored there)."""
+    features anchored there).  With `axis` (a mesh `Axis`), `state.feats`
+    holds this rank's landmark rows, the poses are replicated, the depth
+    elimination is local and the reduced (P, P) system is psum'd, so the
+    prior comes out the same on every rank."""
     w1 = state.w1
     Ml = state.feats.inv_depth.shape[0]
     P = 6 * w1 + 6
@@ -81,8 +85,13 @@ def marginalize_oldest(state: WindowState, cfg: EstimatorConfig) -> MargPrior:
 
     # stage 1: eliminate depths (diagonal) → reduced (P, P) system
     inv_ll = 1.0 / (Hll + 1e-8)
-    S_P = Hpp - (Hpl * inv_ll[None, :]) @ Hpl.T + J_pose.T @ J_pose
-    b_P = gp - Hpl @ (inv_ll * gl) + J_pose.T @ r_pose
+    S_P = Hpp - (Hpl * inv_ll[None, :]) @ Hpl.T
+    b_P = gp - Hpl @ (inv_ll * gl)
+    if axis is not None:
+        S_P = axis.psum(S_P)
+        b_P = axis.psum(b_P)
+    S_P = S_P + J_pose.T @ J_pose
+    b_P = b_P + J_pose.T @ r_pose
 
     # stage 2: eliminate pose 0 (first 6 local coords) from the reduced sys
     Hdd = S_P[:6, :6] + 1e-8 * torch.eye(6, dtype=dtype, device=dev)

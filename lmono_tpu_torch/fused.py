@@ -13,6 +13,12 @@ the tracker's RANSAC Gumbel noise and, when estimate_laser == 2, the
 relative-pose RANSAC's.  The host keeps the frame number; the window count
 is min(frame, W).  `system_chunk` adds the dense-map merge and the loop
 lane's per-frame landmark extraction, sharing one depth image per frame.
+
+With `mesh` (a (kf, map) `parallel.mesh.Mesh`) the same functions are the
+JAX package's `dist_fused_step` / `DistributedFusedPipeline` step: the
+odometry's banks and the dense map are sharded over "map", the window's
+feature table over "kf" (`parallel/dist_engine.py`); everything else runs
+replicated on every rank with the same noise.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from lmono_tpu_torch.mapping.builder import colormap_update_hash
 from lmono_tpu_torch.mapping.depth import (backproject_colored, complete_depth,
                                            project_cloud)
 from lmono_tpu_torch.ops.ransac import gumbel_noise
+from lmono_tpu_torch.parallel.mesh import all_gather_rows
 from lmono_tpu_torch.utils.lie import Pose
 
 _SCAN = ("points", "ranges", "valid")
@@ -57,7 +64,7 @@ class FusedState(NamedTuple):
 def fused_step(state: FusedState, frame: dict, cam: CameraModel,
                cfg: SystemConfig, gumbel: torch.Tensor, n: int,
                rp_gumbel: torch.Tensor | None = None,
-               with_features: bool = False) -> tuple[FusedState, dict]:
+               with_features: bool = False, mesh=None) -> tuple[FusedState, dict]:
     """One frame through odometry → tracker → fusion.
 
     frame: {points (R,W,3), ranges (R,W), valid (R,W), image (H,W)}.
@@ -67,16 +74,23 @@ def fused_step(state: FusedState, frame: dict, cam: CameraModel,
     tracker's `frame`).  The result holds device tensors and two host
     counts, `lm_attempts` and `readbacks`; with_features=True adds the
     scan's edge/planar feature sets (`result["features"]`) for the loop
-    lane's LiDAR refinement.  `handeye_q` / `handeye_converged` are the
-    hand-eye rotation estimate R_CL and its adoption flag after this frame
-    (identity and false unless estimate_laser == 2).
+    lane's LiDAR refinement and, on a mesh, the whole window feature table
+    (`result["window_feats"]`) for its landmarks.  `handeye_q` /
+    `handeye_converged` are the hand-eye rotation estimate R_CL and its
+    adoption flag after this frame (identity and false unless
+    estimate_laser == 2).  mesh: the state is
+    this rank's part under `parallel.dist_engine.fused_specs`.
     """
+    odo_axis = est_axis = None
+    if mesh is not None:
+        odo_axis, est_axis = mesh.axis("map"), mesh.axis("kf")
     odo, lo = odometry_step(state.odo, {k: frame[k] for k in _SCAN},
-                            cfg.lidar, n)
+                            cfg.lidar, n, axis=odo_axis)
     trk, track = tracker_step(state.trk, frame["image"], cam, cfg.tracker,
                               gumbel, n)
     est, out = fusion_step(state.est, track, lo["pose"], cfg.estimator,
-                           min(n, cfg.estimator.window_size), rp_gumbel)
+                           min(n, cfg.estimator.window_size), rp_gumbel,
+                           axis=est_axis)
     result = {
         "pose_t": out.pose.t, "pose_q": out.pose.q,
         "cam_t": out.cam_pose.t, "cam_q": out.cam_pose.q,
@@ -93,6 +107,12 @@ def fused_step(state: FusedState, frame: dict, cam: CameraModel,
     }
     if with_features:
         result["features"] = lo["features"]
+        if mesh is not None:
+            # the whole feature table for the landmarks, gathered by the
+            # step where it was (`FusionOutput.feats_gathered`), else here
+            result["window_feats"] = (
+                out.feats_gathered if out.feats_gathered is not None
+                else all_gather_rows(est_axis, est.window.feats))
     return FusedState(odo, trk, est), result
 
 
@@ -106,7 +126,7 @@ def _stack(outs: list) -> dict:
 
 def fused_chunk(state: FusedState, frames: dict, cam: CameraModel,
                 cfg: SystemConfig, gumbels: torch.Tensor, n: int,
-                rp_gumbels: torch.Tensor | None = None
+                rp_gumbels: torch.Tensor | None = None, mesh=None
                 ) -> tuple[FusedState, dict]:
     """Run `fused_step` over frames with a leading chunk axis; `gumbels`
     (and `rp_gumbels`) carry one frame's noise per row, `n` is the host
@@ -116,7 +136,7 @@ def fused_chunk(state: FusedState, frames: dict, cam: CameraModel,
     for i in range(frames["points"].shape[0]):
         state, out = fused_step(
             state, {k: v[i] for k, v in frames.items()}, cam, cfg, gumbels[i],
-            n + i, None if rp_gumbels is None else rp_gumbels[i])
+            n + i, None if rp_gumbels is None else rp_gumbels[i], mesh=mesh)
         outs.append(out)
     return state, _stack(outs)
 
@@ -124,7 +144,7 @@ def fused_chunk(state: FusedState, frames: dict, cam: CameraModel,
 def system_chunk(state: FusedState, cmap, frames: dict, corr: Pose,
                  cam: CameraModel, cfg: SystemConfig, enable_map: bool,
                  enable_loop: bool, gumbels: torch.Tensor, n: int,
-                 rp_gumbels: torch.Tensor | None = None):
+                 rp_gumbels: torch.Tensor | None = None, mesh=None):
     """The full per-frame system over a chunk: odometry + tracking + window
     fusion, the dense-map merge and the loop lane's landmark extraction
     (port of `lmono_tpu/fused.py:system_chunk`).
@@ -133,11 +153,14 @@ def system_chunk(state: FusedState, cmap, frames: dict, corr: Pose,
     once per frame and shared by the map merge and the landmark depths.
     `corr` is the pose-graph drift correction at chunk start, applied to
     mapped points and landmark outputs.  `gumbels`/`rp_gumbels` and `n` are
-    as in `fused_chunk`.
+    as in `fused_chunk`.  mesh: `cmap` is this rank's shard over "map"
+    and `map_fill` the global occupancy; the landmarks come from the whole
+    feature table (`fused_step`'s `window_feats`).
 
     Returns (state', cmap', stacked per-frame outputs with `map_fill`, the
     active bank's occupancy at chunk end, as a 0-d device tensor).
     """
+    map_axis = None if mesh is None else mesh.axis("map")
     Kw = cfg.loop.window_points
     Ke, Kp = cfg.loop.kf_edge_points, cfg.loop.kf_planar_points
     mcfg = cfg.mapping
@@ -146,9 +169,11 @@ def system_chunk(state: FusedState, cmap, frames: dict, corr: Pose,
         frame = {k: v[i] for k, v in frames.items()}
         state, res = fused_step(state, frame, cam, cfg, gumbels[i], n + i,
                                 None if rp_gumbels is None else rp_gumbels[i],
-                                with_features=enable_loop)
+                                with_features=enable_loop, mesh=mesh)
         feats = res.pop("features", None)
         w = state.est.window
+        if mesh is not None and enable_loop:
+            w = w._replace(feats=res.pop("window_feats"))
         corr_cam = corr.compose(Pose(res["cam_t"], res["cam_q"]))
         res.update(ccam_t=corr_cam.t, ccam_q=corr_cam.q)
         if enable_map or enable_loop:
@@ -161,7 +186,7 @@ def system_chunk(state: FusedState, cmap, frames: dict, corr: Pose,
                                                     cam, mcfg)
             keep = ok & (pts_c[:, 1] > -mcfg.crop_height) & res["initialized"]
             cmap = colormap_update_hash(cmap, corr_cam.apply(pts_c), colors, keep,
-                                        mcfg.map_voxel)
+                                        mcfg.map_voxel, axis=map_axis)
         if enable_loop:
             lm = window_landmarks(w, cam, mcfg, Kw, depth=depth_f, depth_mask=fmask)
             res.update(lm_pts=corr.apply(lm.pts_w), lm_norm=lm.norm, lm_uv=lm.uv,
@@ -172,7 +197,8 @@ def system_chunk(state: FusedState, cmap, frames: dict, corr: Pose,
                        loop_planar_mask=lpm)
         outs.append(res)
     outs = _stack(outs)
-    outs["map_fill"] = torch.sum(cmap.mask)
+    fill = torch.sum(cmap.mask)
+    outs["map_fill"] = fill if map_axis is None else map_axis.psum(fill)
     return state, cmap, outs
 
 
@@ -183,8 +209,12 @@ class FusedPipeline:
     `process` runs one frame, `process_chunk` a stacked (F, ...) batch;
     both draw each frame's noise from `generator` (seed 7 on `device` when
     none is given) in the same order, so they give the same results.
-    `frame` is the host frame counter.
+    `frame` is the host frame counter.  `mesh` is None here;
+    `parallel.dist_engine.DistributedFusedPipeline` sets it and holds this
+    rank's part of the state.
     """
+
+    mesh = None
 
     def __init__(self, cfg: SystemConfig, cam: CameraModel,
                  T_CL: Pose | None = None, device=None,
@@ -224,7 +254,7 @@ class FusedPipeline:
         else:
             g, rp = noise
         self.state, outs = fused_chunk(self.state, frames, self.cam, self.cfg,
-                                       g, self.frame, rp)
+                                       g, self.frame, rp, mesh=self.mesh)
         self.frame += frames["points"].shape[0]
         return outs
 
@@ -235,6 +265,6 @@ class FusedPipeline:
         g, rp = self.noise() if noise is None else noise
         self.state, out = fused_step(self.state, self._to_device(frame),
                                      self.cam, self.cfg, g, self.frame, rp,
-                                     with_features)
+                                     with_features, mesh=self.mesh)
         self.frame += 1
         return out

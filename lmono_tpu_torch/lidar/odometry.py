@@ -50,13 +50,21 @@ def predict_pose(state: OdometryState) -> Pose:
 
 
 def odometry_step(state: OdometryState, scan: dict, cfg: LidarConfig,
-                  frame: int) -> tuple[OdometryState, dict]:
+                  frame: int, axis=None) -> tuple[OdometryState, dict]:
     """Process one sweep dict {points (R,W,3), ranges (R,W), valid (R,W)}.
 
     frame: the host copy of `state.frame`.  Frame 0 registers against the
     empty map like every other frame (fixed work per frame) and keeps the
     prior pose.
+
+    axis: a mesh `Axis` (the space axis, "map") over which the banks in
+    `state` are shards of the global slot space; the scan and the poses
+    are replicated.  Needs `map_update == "hash"`, whose slot ranges
+    partition.  The shards, concatenated, and the trajectory equal the
+    single-device run's.
     """
+    if axis is not None and cfg.map_update != "hash":
+        raise ValueError("sharded odometry requires map_update='hash'")
     feats = extract_features(scan["points"], scan["ranges"], scan["valid"], cfg)
     init_pose = predict_pose(state)
 
@@ -66,7 +74,7 @@ def odometry_step(state: OdometryState, scan: dict, cfg: LidarConfig,
         feats.planar_points, feats.planar_mask,
         state.edge_map.points, state.edge_map.mask,
         state.plane_map.points, state.plane_map.mask,
-        cfg, cfg.scan_to_map_iters,
+        cfg, cfg.scan_to_map_iters, axis=axis,
     )
     # first frame: no map yet, keep the prior pose
     pose = init_pose if frame == 0 else refined
@@ -75,7 +83,10 @@ def odometry_step(state: OdometryState, scan: dict, cfg: LidarConfig,
     # first frames always insert so registration has a map to anchor to
     if (cfg.map_update_every <= 1 or frame % cfg.map_update_every == 0
             or frame < 10):
-        upd = bank_update_hash if cfg.map_update == "hash" else bank_update
+        if cfg.map_update == "hash":
+            upd = lambda *a: bank_update_hash(*a, axis=axis)
+        else:
+            upd = bank_update
         edge_map = upd(state.edge_map, pose.apply(feats.edge_points),
                        feats.edge_mask, cfg.map_voxel_size, pose.t,
                        cfg.map_keep_radius)
@@ -106,16 +117,16 @@ def odometry_step(state: OdometryState, scan: dict, cfg: LidarConfig,
 
 
 def odometry_scan(state: OdometryState, scans: dict, cfg: LidarConfig,
-                  frame: int) -> tuple[OdometryState, dict]:
+                  frame: int, axis=None) -> tuple[OdometryState, dict]:
     """Roll the odometry over a chunk of sweeps with a leading frame axis,
     e.g. points (F, R, W, 3); `frame` is the host frame number of the
     first.  Returns (final state, stacked per-frame outputs without the
-    feature arrays)."""
+    feature arrays).  axis: as in `odometry_step`."""
     n = scans["points"].shape[0]
     outs = []
     for i in range(n):
         state, out = odometry_step(state, {k: v[i] for k, v in scans.items()},
-                                   cfg, frame + i)
+                                   cfg, frame + i, axis)
         out.pop("features")
         outs.append(out)
     stacked = {k: torch.stack([o[k] for o in outs])

@@ -1,11 +1,17 @@
 """Scan registration: point-to-line / point-to-plane Gauss-Newton.
 
-Port of `lmono_tpu/lidar/registration.py` (without its `axis` sharding
-arguments).  Correspondences come from the exact brute-force KNN
-(`lmono_tpu_torch.ops.knn`), line and plane fits are closed-form batched
+Port of `lmono_tpu/lidar/registration.py`.  Correspondences come from the
+exact brute-force KNN (`lmono_tpu_torch.ops.knn`, kernel K1 on CUDA
+tensors), line and plane fits are closed-form batched
 3×3 eigendecompositions, and the 6-DoF damped Gauss-Newton runs as a host
 loop of fixed length over fixed-shape masked tensors.  Nothing in it reads
 a device value back to the host.
+
+With `axis` (a mesh `Axis`, `parallel/mesh.py`) the map banks are this
+rank's shard of the global bank: K1 runs on the shard, and the per-shard
+candidates are gathered over the axis and merged into the global top-k.
+The JAX package leaves its Pallas kernel out inside `shard_map`; the port
+keeps K1 there, since it is exact and the merge's result is the same.
 
 Both residual kinds use the unified form r = A·(T·p − c), so edges and
 planes share one batched Jacobian/normal-equation assembly:
@@ -127,23 +133,38 @@ class PlaneCorr(NamedTuple):
     ok: torch.Tensor         # (Qp,)
 
 
-def _knn_nbrs(query_w, bank, bank_mask, cfg: LidarConfig, center):
+def _knn_nbrs(query_w, bank, bank_mask, cfg: LidarConfig, center, axis=None):
     """k nearest neighbour distances and coords: (d2 (Q,k), nbrs (Q,k,3)).
 
     Every `knn_impl` value means the exact KNN here; reduced-precision
     neighbour selection (`knn_select` "bf16"/"bf16x3") is not ported.
+
+    axis: `bank` is this rank's shard; the shards' candidates, gathered in
+    shard-major order, are merged by a stable sort on d², so a tie goes to
+    the lower shard and then the lower index, the lower global index, as in
+    the single-device KNN.  The global winners are among the union of the
+    per-shard winners, so the merge is exact.
     """
     if cfg.knn_select != "exact":
         raise NotImplementedError(
             f"knn_select={cfg.knn_select!r}: only 'exact' is implemented")
     d2, idx = knn(query_w, bank, bank_mask, cfg.knn_k, center=center)
-    return d2, bank[idx]
+    nbrs = bank[idx]
+    if axis is None or axis.size == 1:
+        return d2, nbrs
+    # one gather of (d², x, y, z) per candidate: (Q, D·k, 4)
+    packed = axis.all_gather(torch.cat([d2[..., None], nbrs], -1), 1, tiled=True)
+    d2_all, sel = torch.sort(packed[..., 0], dim=1, stable=True)
+    sel = sel[:, :cfg.knn_k]
+    return d2_all[:, :cfg.knn_k], torch.gather(
+        packed[..., 1:], 1, sel[..., None].expand(-1, -1, 3))
 
 
 def find_edge_corr(query_w: torch.Tensor, qmask: torch.Tensor,
                    bank: torch.Tensor, bank_mask: torch.Tensor,
-                   cfg: LidarConfig, center: torch.Tensor | None = None) -> EdgeCorr:
-    d2, nbrs = _knn_nbrs(query_w, bank, bank_mask, cfg, center)
+                   cfg: LidarConfig, center: torch.Tensor | None = None,
+                   axis=None) -> EdgeCorr:
+    d2, nbrs = _knn_nbrs(query_w, bank, bank_mask, cfg, center, axis)
     nbr_ok = (d2 < cfg.corr_max_dist ** 2) & qmask[:, None]
     c, v, ok = fit_lines(nbrs, nbr_ok)
     return EdgeCorr(c, v, ok & qmask)
@@ -151,8 +172,9 @@ def find_edge_corr(query_w: torch.Tensor, qmask: torch.Tensor,
 
 def find_plane_corr(query_w: torch.Tensor, qmask: torch.Tensor,
                     bank: torch.Tensor, bank_mask: torch.Tensor,
-                    cfg: LidarConfig, center: torch.Tensor | None = None) -> PlaneCorr:
-    d2, nbrs = _knn_nbrs(query_w, bank, bank_mask, cfg, center)
+                    cfg: LidarConfig, center: torch.Tensor | None = None,
+                    axis=None) -> PlaneCorr:
+    d2, nbrs = _knn_nbrs(query_w, bank, bank_mask, cfg, center, axis)
     nbr_ok = (d2 < cfg.corr_max_dist ** 2) & qmask[:, None]
     n, rho, ok = fit_planes(nbrs, nbr_ok)
     return PlaneCorr(n, rho, ok & qmask)
@@ -223,13 +245,17 @@ def register(init_pose: Pose,
              plane_pts: torch.Tensor, plane_mask: torch.Tensor,
              edge_bank: torch.Tensor, edge_bank_mask: torch.Tensor,
              plane_bank: torch.Tensor, plane_bank_mask: torch.Tensor,
-             cfg: LidarConfig, iters: int) -> tuple[Pose, dict]:
+             cfg: LidarConfig, iters: int, axis=None) -> tuple[Pose, dict]:
     """Register a feature scan against target banks.
 
     Correspondences are re-found every two GN updates (LOAM practice; the
     KNN is the expensive half), so there are max(1, (iters+1)//2) outer
     iterations, each with one edge and one plane KNN.  The update is damped
     by `cfg.gn_damping`.  Returns (refined map-from-scan pose, diagnostics).
+
+    axis: the banks are sharded over this mesh axis; only the
+    correspondence search communicates (the candidate merge), and the
+    merged targets are replicated, so the GN runs alike on every rank.
     """
     all_pts = torch.cat([edge_pts, plane_pts], dim=0)
 
@@ -255,9 +281,9 @@ def register(init_pose: Pose,
         pw_p = _transform(pose, plane_pts)
         # recentering by the sensor position keeps coordinates ≤ max_range
         ec = find_edge_corr(pw_e, edge_mask, edge_bank, edge_bank_mask, cfg,
-                            center=pose.t)
+                            center=pose.t, axis=axis)
         pc = find_plane_corr(pw_p, plane_mask, plane_bank, plane_bank_mask,
-                             cfg, center=pose.t)
+                             cfg, center=pose.t, axis=axis)
         A, c, ok = _unified_targets(ec, pc)
         pose, cost, n_in = gn_update(pose, A, c, ok)
         pose, cost, n_in = gn_update(pose, A, c, ok)

@@ -73,12 +73,15 @@ class KeyframeDB(NamedTuple):
 def db_add(db: KeyframeDB, codebook: torch.Tensor, count: int, *,
            desc, kp_norm, kp_mask, win_desc, win_pts, win_norm, win_mask,
            t, q, time: float, lidar_edge=None, lidar_edge_mask=None,
-           lidar_planar=None, lidar_planar_mask=None) -> KeyframeDB:
+           lidar_planar=None, lidar_planar_mask=None,
+           slot: int | None = None) -> KeyframeDB:
     """Write keyframe number `count` (the host's count of keyframes added
     so far) into ring slot count % C, in place, evicting the oldest at
     capacity.  `desc`/`win_desc` arrive unpacked (K, B) ±1 and are stored
-    bitpacked.  Returns `db`."""
-    slot = count % db.valid.shape[0]
+    bitpacked.  `slot` overrides the slot (a sharded DB's local slot,
+    `parallel/dist_loop.py`).  Returns `db`."""
+    if slot is None:
+        slot = count % db.valid.shape[0]
     db.gdesc[slot] = global_descriptor(desc, kp_mask, codebook)
     db.desc[slot] = pack_bits(desc)
     db.win_desc[slot] = pack_bits(win_desc)

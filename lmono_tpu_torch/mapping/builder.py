@@ -25,6 +25,7 @@ from lmono_tpu_torch.config import MappingConfig
 from lmono_tpu_torch.mapping.depth import (backproject_colored, complete_depth,
                                            project_cloud)
 from lmono_tpu_torch.ops.voxelmap import _hash_slots, _voxel_keys
+from lmono_tpu_torch.parallel.mesh import all_gather_rows
 from lmono_tpu_torch.utils.lie import Pose
 
 
@@ -73,13 +74,22 @@ def colormap_update(cm: ColorMap, new_pts, new_colors, new_mask,
 
 
 def colormap_update_hash(cm: ColorMap, new_pts, new_colors, new_mask,
-                         voxel: float) -> ColorMap:
+                         voxel: float, axis=None) -> ColorMap:
     """O(N) scatter merge: each voxel hashes to one bank slot (the scheme of
     `ops.voxelmap.bank_update_hash`).  Existing points win their voxel; hash
     collisions drop the newcomer; contested slots go to the lowest point
-    index."""
+    index.
+
+    axis: a mesh `Axis` sharding the global slot space as
+    `bank_update_hash` does; the ranks' maps, concatenated, are the
+    single-device map bit for bit."""
     C = cm.points.shape[0]
-    slots = _hash_slots(new_pts, voxel, C)
+    if axis is None:
+        slots = _hash_slots(new_pts, voxel, C)
+    else:
+        slots = _hash_slots(new_pts, voxel, C * axis.size)
+        new_mask = new_mask & (slots // C == axis.index)
+        slots = torch.clamp(slots - axis.index * C, 0, C - 1)
     write = new_mask & ~cm.mask[slots]
     n = new_pts.shape[0]
     dest = torch.where(write, slots, torch.full_like(slots, C))  # C: dropped
@@ -117,32 +127,59 @@ class MapBuilder:
     Per-frame points merge into a bounded *active* bank; when it fills past
     `flush_frac` (or every `flush_every` frames) it is drained to a host
     archive, which `save_ply` writes out with the active rows.
+
+    mesh: a `parallel.mesh.Mesh` whose "map" axis shards the active bank by
+    slot range (`colormap_update_hash`'s `axis`); occupancy counts are
+    psum'd, so every rank flushes at the same frame, and a flush or
+    `save_ply` gathers the shards first, so the archive and the PLY hold
+    the single-device map's points in its order.
     """
 
     # active colored bank: 24 MiB at 2^20 rows (points + colours, f32)
     ACTIVE_CAPACITY = 1 << 20
 
-    def __init__(self, cam: CameraModel, cfg: MappingConfig, device=None):
+    def __init__(self, cam: CameraModel, cfg: MappingConfig, device=None,
+                 mesh=None):
         self.cfg = cfg
         self.cam = cam
         self.device = default_device(device)
-        self.map = ColorMap.empty(min(cfg.map_capacity, self.ACTIVE_CAPACITY),
-                                  self.device)
+        self._use_hash = cfg.map_update == "hash"
+        self.axis = None if mesh is None else mesh.axis("map")
+        if self.axis is not None and not self._use_hash:
+            raise ValueError("sharded mapping requires map_update='hash'")
+        # the global capacity; a rank holds capacity / map_shards slots
+        self.capacity = min(cfg.map_capacity, self.ACTIVE_CAPACITY)
+        self._shards = 1 if self.axis is None else self.axis.size
+        if self.capacity % self._shards:
+            raise ValueError(f"active map capacity {self.capacity} % map shards "
+                             f"{self._shards}")
+        self.map = ColorMap.empty(self.capacity // self._shards, self.device)
         self._archive: list[tuple[np.ndarray, np.ndarray]] = []
         self._archived_n = 0
-        self._use_hash = cfg.map_update == "hash"
         self.frames = 0
         # occupancy count queued on an earlier check: (host copy, event)
         self._occ = None
+
+    def _global_map(self) -> ColorMap:
+        """The whole active bank (the shards gathered on a mesh)."""
+        if self.axis is None:
+            return self.map
+        return all_gather_rows(self.axis, self.map)
+
+    def _count(self) -> torch.Tensor:
+        """Occupied slots of the whole active bank, a 0-d device tensor."""
+        n = torch.sum(self.map.mask)
+        return n if self.axis is None else self.axis.psum(n)
 
     def _flush_active(self) -> None:
         """Archive the active bank's valid rows to host memory and reset it.
         Reading the mask waits for every queued program, so this runs only
         when the bank is full."""
-        idx = torch.nonzero(self.map.mask).squeeze(1)
+        cm = self._global_map()
+        idx = torch.nonzero(cm.mask).squeeze(1)
         if idx.numel():
-            self._archive.append((self.map.points[idx].cpu().numpy(),
-                                  self.map.colors[idx].cpu().numpy()))
+            self._archive.append((cm.points[idx].cpu().numpy(),
+                                  cm.colors[idx].cpu().numpy()))
             self._archived_n += int(idx.numel())
         self.map = ColorMap.empty(self.map.points.shape[0], self.device)
         self._occ = None   # a queued count refers to the drained bank
@@ -157,9 +194,9 @@ class MapBuilder:
             host, event = self._occ
             if event is not None:
                 event.synchronize()
-            if int(host) >= self.cfg.flush_frac * self.map.mask.shape[0]:
+            if int(host) >= self.cfg.flush_frac * self.capacity:
                 self._flush_active()
-        count = torch.sum(self.map.mask)
+        count = self._count()
         if count.is_cuda:
             host = torch.empty((), dtype=count.dtype, pin_memory=True)
             host.copy_(count, non_blocking=True)
@@ -177,7 +214,7 @@ class MapBuilder:
             points_laser, points_valid, image, T_CL, T_WC, self.cam, self.cfg)
         if self._use_hash:
             self.map = colormap_update_hash(self.map, pts_w, colors, keep,
-                                            self.cfg.map_voxel)
+                                            self.cfg.map_voxel, axis=self.axis)
         else:
             self.map = colormap_update(self.map, pts_w, colors, keep,
                                        self.cfg.map_voxel, T_WC.t)
@@ -189,7 +226,7 @@ class MapBuilder:
             self._maybe_flush()
         # a device count: reading it is the caller's sync to pay
         return {"depth": depth, "depth_mask": dmask,
-                "n_points": self._archived_n + torch.sum(self.map.mask)}
+                "n_points": self._archived_n + self._count()}
 
     def absorb_chunk(self, cmap: ColorMap, n_frames: int) -> None:
         """Adopt the active bank carried through `fused.system_chunk`.  In
@@ -208,21 +245,25 @@ class MapBuilder:
         """Occupancy-mode flush decision from an already-read count."""
         if self.cfg.flush_every > 0:
             return
-        if n_points >= self.cfg.flush_frac * self.map.mask.shape[0]:
+        if n_points >= self.cfg.flush_frac * self.capacity:
             self._flush_active()
 
     @property
     def n_points(self) -> int:
         """Archived plus active points (reads the active mask back)."""
-        return self._archived_n + int(self.map.mask.sum())
+        return self._archived_n + int(self._count())
 
-    def save_ply(self, path: str) -> int:
-        m = self.map.mask.cpu().numpy()
-        parts_p = [p for p, _ in self._archive] + [self.map.points.cpu().numpy()[m]]
-        parts_c = [c for _, c in self._archive] + [self.map.colors.cpu().numpy()[m]]
+    def save_ply(self, path: str, write: bool = True) -> int:
+        """Write the archive and the active bank; returns the point count.
+        On a mesh every rank takes part in the gather, and the caller
+        lets one of them write (`write`)."""
+        cm = self._global_map()
+        m = cm.mask.cpu().numpy()
+        parts_p = [p for p, _ in self._archive] + [cm.points.cpu().numpy()[m]]
+        parts_c = [c for _, c in self._archive] + [cm.colors.cpu().numpy()[m]]
         pts = np.concatenate(parts_p)
         cols = np.concatenate(parts_c)
-        return write_ply(path, pts, cols)
+        return write_ply(path, pts, cols) if write else len(pts)
 
 
 def write_ply(path: str, pts: np.ndarray, cols: np.ndarray) -> int:

@@ -101,7 +101,8 @@ def _hash_slots(pts: torch.Tensor, voxel: float, capacity: int) -> torch.Tensor:
 
 def bank_update_hash(bank: PointBank, new_pts: torch.Tensor,
                      new_mask: torch.Tensor, voxel: float,
-                     center: torch.Tensor, keep_radius: float) -> PointBank:
+                     center: torch.Tensor, keep_radius: float,
+                     axis=None) -> PointBank:
     """O(N) scatter-based merge: each voxel hashes to one bank slot.
 
     Semantics vs `bank_update` (the sort-based exact dedup):
@@ -110,6 +111,12 @@ def bank_update_hash(bank: PointBank, new_pts: torch.Tensor,
       * contested slots (several new points, one slot, one frame) go to the
         lowest point index, deterministically;
       * point indices are stable across frames, and there is no compaction.
+
+    axis: a mesh `Axis` (`parallel/mesh.py`) over which the global slot
+    space of C·axis_size slots is sharded: this rank holds slots
+    [my·C, (my+1)·C), `new_pts` is the whole (replicated) frame, and the
+    rank keeps only the writes landing in its range.  The ranks' banks,
+    concatenated, are the single-device bank bit for bit.
     """
     C = bank.capacity
     r2 = keep_radius * keep_radius
@@ -118,7 +125,13 @@ def bank_update_hash(bank: PointBank, new_pts: torch.Tensor,
     nd2 = torch.sum((new_pts - center) ** 2, dim=-1)
     new_mask = new_mask & (nd2 < r2)
 
-    slots = _hash_slots(new_pts, voxel, C)
+    if axis is None:
+        slots = _hash_slots(new_pts, voxel, C)
+    else:
+        slots = _hash_slots(new_pts, voxel, C * axis.size)
+        my = axis.index
+        new_mask = new_mask & (slots // C == my)
+        slots = torch.clamp(slots - my * C, 0, C - 1)
     occupied = mask[slots]
     write = new_mask & ~occupied
     n = new_pts.shape[0]

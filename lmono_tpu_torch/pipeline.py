@@ -24,8 +24,18 @@ and one more when a reap applied a loop (the count of rejected loop edges).
 `save_checkpoint` / `load_checkpoint` write and restore the whole state,
 keyed by tree path (`utils/checkpoint.py`), including three things the
 reference's checkpoint leaves out: the loop detector's noise source and its
-skip gates, and the map's flushed archive.  Left for later: the device-mesh
-branch of the reference's constructor.
+skip gates, and the map's flushed archive.
+
+With `ParallelConfig.kf_shards × map_shards > 1` the engine runs over a
+(kf, map) mesh of ranks (`parallel/`), in SPMD form: the system is built
+inside an initialized `torch.distributed` process group of kf × map
+ranks (`python -m lmono_tpu_torch.run_multihost` spawns them; the
+constructor raises without one), and every rank makes the same calls.
+The odometry banks and the dense map are sharded over "map", the window's
+feature table, the keyframe DB (kf > 1) and, past
+DIST_POSEGRAPH_CROSSOVER nodes, the pose graph over "kf"; the rest runs
+replicated with identically seeded noise.  `process_chunk` runs frame by
+frame as on one device.  Checkpoints are not written on a mesh.
 """
 
 from __future__ import annotations
@@ -54,6 +64,11 @@ from lmono_tpu_torch.utils.timing import StageTimer
 
 _SCAN = ("points", "ranges", "valid")
 
+# node count from which the mesh runs the kf-sharded pose-graph optimizer
+# (the JAX package's measured crossover on its 8-device CPU mesh); smaller
+# graphs are optimized replicated on every rank
+DIST_POSEGRAPH_CROSSOVER = 16384
+
 
 def drop_bad_loops(g: PoseGraph, gate_m: float) -> tuple[PoseGraph, torch.Tensor]:
     """Switch off loop edges that the optimized graph still contradicts by
@@ -78,12 +93,22 @@ class SlamSystem:
 
     def __init__(self, cfg: SystemConfig, enable_loop: bool = True,
                  enable_mapping: bool = True, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, mesh=None):
         """generator: the front's noise source (seed 7 on `device` when none
-        is given); the loop detector draws from its own."""
+        is given); the loop detector draws from its own.  mesh: the (kf,
+        map) engine mesh when kf_shards × map_shards > 1 (default: one over
+        every rank of the process group)."""
         pc = cfg.parallel
+        self.mesh = None
         if pc.kf_shards * pc.map_shards > 1:
-            raise NotImplementedError("the device-mesh engine is not ported")
+            from lmono_tpu_torch.parallel.dist_engine import (check_divisible,
+                                                              make_engine_mesh)
+            self.mesh = mesh or make_engine_mesh(pc.kf_shards, pc.map_shards)
+            if self.mesh.shape != {"kf": pc.kf_shards, "map": pc.map_shards}:
+                raise ValueError(f"mesh {self.mesh.shape} is not the configured "
+                                 f"(kf={pc.kf_shards}, map={pc.map_shards})")
+            check_divisible(cfg, pc.kf_shards, pc.map_shards, loop=enable_loop,
+                            mapping=enable_mapping)
         self.cfg = cfg
         self.device = default_device(device)
         self.cam = camera_from_config(cfg.camera)
@@ -91,19 +116,40 @@ class SlamSystem:
         if cfg.laser_to_camera is not None:
             m = np.array(cfg.laser_to_camera, np.float32).reshape(4, 4)
             T_CL = Pose.from_mat4(torch.tensor(m, device=self.device))
-        self.front = FusedPipeline(cfg, self.cam, T_CL, device=self.device,
-                                   generator=generator)
+        if self.mesh is None:
+            self.front = FusedPipeline(cfg, self.cam, T_CL, device=self.device,
+                                       generator=generator)
+        else:
+            from lmono_tpu_torch.parallel.dist_engine import DistributedFusedPipeline
+            self.front = DistributedFusedPipeline(
+                cfg, self.cam, T_CL, mesh=self.mesh, device=self.device,
+                generator=generator)
         self.loop: Optional[LoopDetector] = (
             LoopDetector(cfg.loop, (cfg.camera.height, cfg.camera.width),
                          lidar_cfg=cfg.lidar, device=self.device)
             if enable_loop else None)
+        if self.loop is not None and self.mesh is not None and pc.kf_shards > 1:
+            # the keyframe DB sharded over kf: scores and rows split by slot,
+            # verification stays replicated
+            from lmono_tpu_torch.parallel.dist_loop import (make_dist_process_fused,
+                                                            put_db_sharded)
+            self.loop.db = put_db_sharded(self.mesh, self.loop.db)
+            self.loop.detect_add = make_dist_process_fused(self.mesh, self.loop,
+                                                           cfg.loop)
         # the pose graph starts small and doubles on demand: its GN+CG costs
-        # O(capacity) per step whatever the number of live nodes
-        self._graph_cap = min(512, cfg.loop.db_capacity)
+        # O(capacity) per step whatever the number of live nodes; on a mesh
+        # every capacity is a multiple of kf_shards, so the nodes split
+        self._graph_cap = self._round_cap(min(512, cfg.loop.db_capacity))
         self.graph = (PoseGraph.empty(self._graph_cap, device=self.device)
                       if enable_loop else None)
+        self._opt_sharded = None
+        if self.mesh is not None and enable_loop:
+            from lmono_tpu_torch.parallel.dist_posegraph import make_sharded_posegraph_opt
+            self._opt_sharded = make_sharded_posegraph_opt(
+                self.mesh, iters=cfg.loop.posegraph_iters, cg_iters=50,
+                four_dof=cfg.loop.posegraph_4dof)
         self.mapper: Optional[MapBuilder] = (
-            MapBuilder(self.cam, cfg.mapping, device=self.device)
+            MapBuilder(self.cam, cfg.mapping, device=self.device, mesh=self.mesh)
             if enable_mapping else None)
         self.correction = Pose.identity(device=self.device)
         self.timer = StageTimer()
@@ -124,6 +170,12 @@ class SlamSystem:
     @property
     def frame_idx(self) -> int:
         return self.front.frame
+
+    def _round_cap(self, n: int) -> int:
+        """`n` rounded up to a multiple of kf_shards, capped at db_capacity
+        (which the mesh check keeps divisible)."""
+        ks = max(1, self.cfg.parallel.kf_shards)
+        return min(-(-n // ks) * ks, self.cfg.loop.db_capacity)
 
     def _read(self, *values) -> np.ndarray:
         """One device→host read of several values (flattened to f32, whose
@@ -171,7 +223,8 @@ class SlamSystem:
 
         if self.loop is not None and kf_flag and init_flag:
             with self.timer.stage("loop"):
-                self._loop_lane(scan, image, cam_pose, ex, time, res["features"], idx)
+                self._loop_lane(scan, image, cam_pose, ex, time, res["features"], idx,
+                                res.get("window_feats"))
         if self.mapper is not None and init_flag:
             with self.timer.stage("map"):
                 self.mapper.process(scan["points"].reshape(-1, 3),
@@ -208,7 +261,7 @@ class SlamSystem:
             self.front.state, cmap2, outs = system_chunk(
                 self.front.state, cmap, frames, self.correction, self.cam,
                 self.cfg, self.mapper is not None, self.loop is not None, g,
-                self.frame_idx, rp)
+                self.frame_idx, rp, mesh=self.mesh)
         fill = outs.pop("map_fill")
         if self.mapper is not None:
             self.mapper.absorb_chunk(cmap2, F)
@@ -235,11 +288,16 @@ class SlamSystem:
 
     # ------------------------------------------------------------------
     def _loop_lane(self, scan, image, cam_pose: Pose, extrinsic: Pose,
-                   time: float, lidar_feats, frame_idx: int) -> None:
+                   time: float, lidar_feats, frame_idx: int,
+                   window_feats=None) -> None:
         """Keyframe lane of `process`: landmarks from the raw scan, detect
-        and add, the result queued for a later reap."""
+        and add, the result queued for a later reap.  window_feats: on a
+        mesh, the whole feature table (`fused_step`'s `window_feats`)."""
         cfg = self.cfg
-        lm = window_landmarks(self.front.state.est.window, self.cam, cfg.mapping,
+        w = self.front.state.est.window
+        if window_feats is not None:
+            w = w._replace(feats=window_feats)
+        lm = window_landmarks(w, self.cam, cfg.mapping,
                               cfg.loop.window_points, scan_points=scan["points"],
                               scan_valid=scan["valid"])
         corr_pose = self.correction.compose(cam_pose)
@@ -292,7 +350,7 @@ class SlamSystem:
     def _grow_graph(self) -> None:
         """Double the pose-graph node capacity (log2(total/512) times over a
         run)."""
-        self._graph_cap = min(self._graph_cap * 2, self.cfg.loop.db_capacity)
+        self._graph_cap = self._round_cap(self._graph_cap * 2)
         self.graph = self.graph.grown(self._graph_cap)
 
     # ------------------------------------------------------------------
@@ -344,7 +402,15 @@ class SlamSystem:
         return applied
 
     def _optimize(self, g: PoseGraph) -> PoseGraph:
+        """On a mesh, graphs of DIST_POSEGRAPH_CROSSOVER nodes and more run
+        the kf-sharded optimizer (sharded for the solve, gathered back);
+        smaller ones the single-device optimizer on every rank alike."""
         self.graph_solves += 1
+        if self._opt_sharded is not None and g.t.shape[0] >= DIST_POSEGRAPH_CROSSOVER:
+            from lmono_tpu_torch.parallel.dist_posegraph import (graph_gathered,
+                                                                 graph_shardings)
+            return graph_gathered(self.mesh, self._opt_sharded(
+                graph_shardings(self.mesh, g)))
         return optimize_posegraph(g, iters=self.cfg.loop.posegraph_iters,
                                   four_dof=self.cfg.loop.posegraph_4dof)
 
@@ -369,9 +435,15 @@ class SlamSystem:
         return pose_stack(out)
 
     def save_map(self, path: str) -> int:
+        """Write the PLY (on a mesh every rank gathers, rank 0 writes);
+        returns the point count."""
         if self.mapper is None:
             return 0
-        return self.mapper.save_ply(path)
+        return self.mapper.save_ply(path, write=self.mesh is None or self.mesh.rank == 0)
+
+    def _no_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise RuntimeError(f"{what} on a device mesh is not supported")
 
     # ------------------------------------------------------------------
     _COUNTERS = ("n_loops", "_n_nodes", "readbacks", "reaps", "graph_solves",
@@ -412,6 +484,7 @@ class SlamSystem:
         histories (per-frame raw poses, per-node frames and raw camera
         poses), the skip gates' positions and the map's archive go in as
         variable-length extras."""
+        self._no_mesh("save_checkpoint")
         self._reap_loops()
         extra = {}
         if self._raw_poses:
@@ -440,6 +513,7 @@ class SlamSystem:
         `CheckpointMismatch` at once.  Noise-source states load only into
         a system on the same device type (the CPU and CUDA generators keep
         states of different sizes, listed under `rng/`)."""
+        self._no_mesh("load_checkpoint")
         template = self._checkpoint_tree()
         while True:
             try:

@@ -81,7 +81,12 @@ def test_port_imports_no_jax():
         "lmono_tpu_torch.utils.spline", "lmono_tpu_torch.estimator.stereo",
         "lmono_tpu_torch.estimator.sfm", "lmono_tpu_torch.viz",
         "lmono_tpu_torch.run_lidar_odometry", "lmono_tpu_torch.run_full_pipeline",
-        "lmono_tpu_torch.bench_loop_pr",
+        "lmono_tpu_torch.bench_loop_pr", "lmono_tpu_torch.parallel",
+        "lmono_tpu_torch.parallel.mesh", "lmono_tpu_torch.parallel.launch",
+        "lmono_tpu_torch.parallel.dist_knn", "lmono_tpu_torch.parallel.dist_window",
+        "lmono_tpu_torch.parallel.dist_engine", "lmono_tpu_torch.parallel.dist_loop",
+        "lmono_tpu_torch.parallel.dist_posegraph", "lmono_tpu_torch.parallel.dist_ba",
+        "lmono_tpu_torch.run_multihost",
     ]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
@@ -101,6 +106,20 @@ def test_chip_scripts_import_no_jax():
     # the scripts the card runs: neither they nor what they import reach JAX
     code = ("import sys\n"
             "import chip_smoke, chip_perf\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'lmono_tpu'))\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_rank_programs_import_no_jax():
+    # spawned ranks import the mesh tests' rank programs afresh: they must
+    # not reach JAX either
+    code = ("import sys\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import torch_dist_cases\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'lmono_tpu'))\n"
             "assert not bad, bad\n")

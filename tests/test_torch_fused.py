@@ -285,7 +285,7 @@ def test_system_chunk_teacher_forced_matches(jax_tpu_route, monkeypatch):
     idx = list(SYS_FRAMES)
     after = {i: fused_state_from_numpy(states[i + 1], device="cpu")[0] for i in idx}
 
-    def forced(state, frame, cam, cfg, gumbel, n, rp=None, with_features=False):
+    def forced(state, frame, cam, cfg, gumbel, n, rp=None, with_features=False, mesh=None):
         res = {k: torch.from_numpy(np.asarray(v)) for k, v in outs[n].items()
                if k != "features"}
         res["features"] = ScanFeatures(
