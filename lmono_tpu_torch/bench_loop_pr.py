@@ -58,8 +58,11 @@ def _perturb(pose_wc: Pose, rng: np.random.RandomState) -> tuple[Pose, float, fl
     return pose, rng.uniform(0.7, 1.3), rng.uniform(0.8, 1.25)
 
 
-def run(n_kf: int = 78, perturb: bool = False, device=None) -> dict:
-    """The benchmark; returns the result that `main` writes."""
+def run(n_kf: int = 78, perturb: bool = False, device=None,
+        codebook: torch.Tensor | None = None) -> dict:
+    """The benchmark; returns the result that `main` writes.  `codebook`
+    (bits, vocab_dim) replaces the detector's vocabulary, e.g. one fresh
+    from `train_vocab`."""
     dev = default_device(device)
     rng = np.random.RandomState(11)
     CFG = synthetic_config()
@@ -72,6 +75,11 @@ def run(n_kf: int = 78, perturb: bool = False, device=None) -> dict:
     cc = CFG.camera
     cam = pinhole_camera(cc.width, cc.height, cc.fx, cc.fy, cc.cx, cc.cy)
     det = LoopDetector(lcfg, (cc.height, cc.width), device=dev)
+    if codebook is not None:
+        if tuple(codebook.shape) != tuple(det.codebook.shape):
+            raise ValueError(f"codebook shape {tuple(codebook.shape)}, expected "
+                             f"{tuple(det.codebook.shape)}")
+        det.codebook = codebook.to(device=dev, dtype=torch.float32)
     no_uv = torch.zeros((1, 2), device=dev)
     no_mask = torch.zeros((1,), dtype=torch.bool, device=dev)
 

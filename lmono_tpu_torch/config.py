@@ -3,9 +3,10 @@
 A field-for-field copy of `lmono_tpu/config.py` (plain dataclasses, no
 framework imports), so that one JSON config drives both packages;
 `tests/test_torch_config.py` holds the two trees equal.  In this package the
-LiDAR `knn_impl` values all mean "exact KNN" (the CUDA kernel on CUDA
-tensors, the plain PyTorch version on CPU tensors), and `knn_select` values
-other than "exact" are not implemented yet.
+LiDAR `knn_impl` values all mean the same KNN (the CUDA kernel on CUDA
+tensors, the plain PyTorch version on CPU tensors), and `knn_select` picks
+its selection key as on the JAX package's TPU route (`ops/knn.py`); a value
+other than "exact", "bf16x3" and "bf16" raises ValueError.
 
 Replaces the reference's three ad-hoc parameter sets of ~50 mutable globals
 filled from OpenCV FileStorage YAML (`mono_lidar_mapping/src/parameter.cc:76-199`,
@@ -75,20 +76,21 @@ class LidarConfig:
     knn_k: int = 5
     knn_impl: str = "xla"             # kept for config parity with
                                       # lmono_tpu; every value runs the
-                                      # exact KNN here (ops/knn.py): the
+                                      # same KNN here (ops/knn.py): the
                                       # CUDA kernel on CUDA tensors, the
                                       # plain version on CPU tensors.
-    knn_select: str = "exact"         # neighbor-SELECTION precision for the
-                                      # XLA path (final distances are always
-                                      # exact f32 on the k picks):
-                                      # "exact": fused broadcast-diff f32;
-                                      # "bf16x3": f32 matmul at
-                                      #   Precision.HIGH — err ~2⁻¹⁶·|q||t|,
-                                      #   ≤0.05 m² recentered (selection
-                                      #   effectively exact, MXU-rate);
-                                      # "bf16": bf16 cast cross-term
-                                      #   (cheapest, ~0.4% coordinate error
-                                      #   — measurably worse ATE).
+    knn_select: str = "exact"         # neighbor-SELECTION key of the KNN
+                                      # (final distances are always exact
+                                      # f32 on the k picks):
+                                      # "exact": difference-form d², picks
+                                      #   sorted by d²;
+                                      # "bf16x3": the f32 expansion key
+                                      #   (q²−2q·t)+t² (selection
+                                      #   effectively exact), picks in key
+                                      #   order;
+                                      # "bf16": the same key with a bf16
+                                      #   cross term (~0.4% coordinate
+                                      #   error — measurably worse ATE).
 
 
 @dataclass(frozen=True)

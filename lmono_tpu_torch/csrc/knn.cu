@@ -57,12 +57,39 @@
 //     in rank order.  Lists are sorted by (d², index) and merged in
 //     ascending range order, so the same strict < keeps the earliest index
 //     on ties.  Nothing partial goes to device memory.
+//
+// Reduced-precision selection (select 1 "bf16x3", 2 "bf16"; the JAX
+// package's LidarConfig.knn_select on its TPU route, lmono_tpu/ops/knn.py):
+// the same scan, bound and merges run on the key (q² − 2·dot) + t² in
+// place of d², so the result is the exact top-k of the key with ties to the
+// earliest index.  q² and t² are f32 sums of the recentred coordinates
+// ((x·x + y·y) + z·z); dot = (qx·tx + qy·ty) + qz·tz with every product and
+// sum rounded once (no fused multiply-add), over the recentred coordinates
+// for "bf16x3" and over their round-to-nearest-even bf16 values for
+// "bf16": the arithmetic of ops/knn.py:select_key_topk, so the keys equal
+// the plain version's bit for bit.  The packed tile holds (x, y, z, t²);
+// masked rows and rows past the slice are (0, 0, 0, +inf).  After the
+// cluster merge, rank 0 recomputes each pick's difference-form d² from the
+// bank in device memory, in selection order.  The key modes are the
+// kernel's Key instantiation, so the exact mode's scan is untouched; the
+// rounding to bf16 is a flag read outside the scan.
+//
+// Build: the source is compiled twice (ops/cuda/knn.py), with
+// LMONO_KNN_KEY=0 into a library of the exact instantiations and with
+// LMONO_KNN_KEY=1 into one of the Key instantiations, so that the two
+// nvcc runs proceed side by side and the first call's build takes no
+// longer than one instantiation set.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#ifndef LMONO_KNN_KEY
+#define LMONO_KNN_KEY 0
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -146,21 +173,43 @@ __device__ __forceinline__ unsigned stage(float* raw, const float* bank,
   return bits;
 }
 
-// Wait for tile t, then re-pack its rows as float4 minus the centre, +inf
-// for masked rows and rows past the slice.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// (x·x + y·y) + z·z, each operation rounded once.
+__device__ __forceinline__ float sq_norm(float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
+                   __fmul_rn(z, z));
+}
+
+// Wait for tile t, then re-pack its rows minus the centre.  Exact mode:
+// (x, y, z, 0), +inf for masked rows and rows past the slice.  Key mode:
+// (x, y, z, t²) with x, y, z rounded to bf16 when `bf16` is set, and
+// (0, 0, 0, +inf) for masked rows and rows past the slice.
+template <bool Key>
 __device__ __forceinline__ void land(const float* raw, float4* packed, int n,
                                      int t, unsigned bits, int lane, float cx,
-                                     float cy, float cz) {
+                                     float cy, float cz, bool bf16) {
   cp_async_wait<1>();
   __syncwarp();
   const float* src = raw + (t & 1) * (kTileRows * 3);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = lane + 32 * i;
-    float4 v = make_float4(INFINITY, INFINITY, INFINITY, 0.f);
+    float4 v = Key ? make_float4(0.f, 0.f, 0.f, INFINITY)
+                   : make_float4(INFINITY, INFINITY, INFINITY, 0.f);
     if (r < n && ((bits >> i) & 1u)) {
       v = make_float4(__fsub_rn(src[3 * r], cx), __fsub_rn(src[3 * r + 1], cy),
                       __fsub_rn(src[3 * r + 2], cz), 0.f);
+      if (Key) {
+        v.w = sq_norm(v.x, v.y, v.z);
+        if (bf16) {
+          v.x = round_bf16(v.x);
+          v.y = round_bf16(v.y);
+          v.z = round_bf16(v.z);
+        }
+      }
     }
     packed[r] = v;
   }
@@ -176,19 +225,31 @@ __device__ __forceinline__ float dist2(const float4& p, float qx, float qy,
   return __fmaf_rn(dz, dz, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
 }
 
-// The least d² of packed rows [0, r1) for each of the lane's R queries.
-template <int R>
+// The selection score of packed row p: d² in exact mode, else the key
+// (q² − 2·dot) + t² with q2 = q².
+template <bool Key>
+__device__ __forceinline__ float score(const float4& p, float qx, float qy,
+                                       float qz, float q2) {
+  if (!Key) return dist2(p, qx, qy, qz);
+  const float dot = __fadd_rn(__fadd_rn(__fmul_rn(qx, p.x), __fmul_rn(qy, p.y)),
+                              __fmul_rn(qz, p.z));
+  return __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, dot)), p.w);
+}
+
+// The least score of packed rows [0, r1) for each of the lane's R queries.
+template <int R, bool Key>
 __device__ __forceinline__ void sample_min(const float4* packed, int r1,
                                            const float (&qx)[R],
                                            const float (&qy)[R],
                                            const float (&qz)[R],
+                                           const float (&q2)[R],
                                            float (&gmin)[R]) {
 #pragma unroll 4
   for (int r = 0; r < r1; ++r) {
     const float4 p = packed[r];
 #pragma unroll
     for (int j = 0; j < R; ++j) {
-      gmin[j] = fminf(gmin[j], dist2(p, qx[j], qy[j], qz[j]));
+      gmin[j] = fminf(gmin[j], score<Key>(p, qx[j], qy[j], qz[j], q2[j]));
     }
   }
 }
@@ -196,10 +257,11 @@ __device__ __forceinline__ void sample_min(const float4* packed, int r1,
 // Scan packed rows [r0, r1) (bank index base + r; r1 - r0 a multiple of
 // kGroup, rows past the tile are +inf) for the lane's R queries.
 // lim[j] = min(own k-th, tau⁺): only d < lim can change the result.
-template <int K, int R>
+template <int K, int R, bool Key>
 __device__ __forceinline__ void scan(const float4* packed, int base, int r0,
                                      int r1, const float (&qx)[R],
                                      const float (&qy)[R], const float (&qz)[R],
+                                     const float (&q2)[R],
                                      float (&bd)[R][K], int (&bi)[R][K],
                                      float (&lim)[R], const float (&tau)[R]) {
   for (int r = r0; r < r1; r += kGroup) {
@@ -210,7 +272,7 @@ __device__ __forceinline__ void scan(const float4* packed, int base, int r0,
       const float4 p = packed[r + g];
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        d[g][j] = dist2(p, qx[j], qy[j], qz[j]);
+        d[g][j] = score<Key>(p, qx[j], qy[j], qz[j], q2[j]);
         any |= d[g][j] < lim[j];
       }
     }
@@ -274,11 +336,12 @@ __device__ __forceinline__ void store_lists(float* ld, int* li, int lane,
 // grid = (q_tiles · C), cluster (C, 1, 1), block 32·W threads.  CTA
 // blockIdx.x has query tile blockIdx.x / C and cluster rank c; its warp w
 // scans bank slice c·W + w, rows [slice·span, min(M, (slice+1)·span)).
-template <int K, int R>
+// Key: select on the reduced key (bf16 rounds the cross term's inputs).
+template <int K, int R, bool Key>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 knn_kernel(const float* __restrict__ query, int Q,
            const float* __restrict__ bank, const uint8_t* __restrict__ mask,
-           int M, const float* __restrict__ center, int span,
+           int M, const float* __restrict__ center, int span, int bf16,
            float* __restrict__ out_d, int* __restrict__ out_i) {
   using L = Layout<K, R>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -297,7 +360,7 @@ knn_kernel(const float* __restrict__ query, int Q,
     cy = center[1];
     cz = center[2];
   }
-  float qx[R], qy[R], qz[R], lim[R], tau[R];
+  float qx[R], qy[R], qz[R], q2[R], lim[R], tau[R];
   float bd[R][K];
   int bi[R][K];
 #pragma unroll
@@ -308,6 +371,15 @@ knn_kernel(const float* __restrict__ query, int Q,
       qx[j] = __fsub_rn(query[3 * static_cast<size_t>(qi)], cx);
       qy[j] = __fsub_rn(query[3 * static_cast<size_t>(qi) + 1], cy);
       qz[j] = __fsub_rn(query[3 * static_cast<size_t>(qi) + 2], cz);
+    }
+    q2[j] = 0.f;
+    if (Key) {
+      q2[j] = sq_norm(qx[j], qy[j], qz[j]);
+      if (bf16) {
+        qx[j] = round_bf16(qx[j]);
+        qy[j] = round_bf16(qy[j]);
+        qz[j] = round_bf16(qz[j]);
+      }
     }
     lim[j] = kFar;
     tau[j] = INFINITY;
@@ -342,14 +414,14 @@ knn_kernel(const float* __restrict__ query, int Q,
     } else {
       cp_async_commit();  // an empty group keeps the waits uniform
     }
-    land(raw, packed, n0, 0, bits, lane, cx, cy, cz);
+    land<Key>(raw, packed, n0, 0, bits, lane, cx, cy, cz, bf16 != 0);
   }
 
   // tau: the k-th smallest of the cluster's per-warp sample minima
   float gmin[R];
 #pragma unroll
   for (int j = 0; j < R; ++j) gmin[j] = INFINITY;
-  sample_min<R>(packed, min(n0, kSampleRows), qx, qy, qz, gmin);
+  sample_min<R, Key>(packed, min(n0, kSampleRows), qx, qy, qz, q2, gmin);
 #pragma unroll
   for (int j = 0; j < R; ++j) my_d[lane + 32 * j] = gmin[j];
   __syncthreads();
@@ -395,8 +467,8 @@ knn_kernel(const float* __restrict__ query, int Q,
     tau[j] = tau_s[lane + 32 * j];
     lim[j] = fminf(kFar, tau[j]);
   }
-  scan<K, R>(packed, lo, 0, (n0 + kGroup - 1) & ~(kGroup - 1), qx, qy, qz,
-             bd, bi, lim, tau);
+  scan<K, R, Key>(packed, lo, 0, (n0 + kGroup - 1) & ~(kGroup - 1), qx, qy,
+                  qz, q2, bd, bi, lim, tau);
   __syncwarp();
 
   for (int t = 1; t < tiles; ++t) {
@@ -408,9 +480,9 @@ knn_kernel(const float* __restrict__ query, int Q,
     }
     const int base = lo + t * kTileRows;
     const int n = min(kTileRows, hi - base);
-    land(raw, packed, n, t, bits, lane, cx, cy, cz);
-    scan<K, R>(packed, base, 0, (n + kGroup - 1) & ~(kGroup - 1), qx, qy, qz,
-               bd, bi, lim, tau);
+    land<Key>(raw, packed, n, t, bits, lane, cx, cy, cz, bf16 != 0);
+    scan<K, R, Key>(packed, base, 0, (n + kGroup - 1) & ~(kGroup - 1), qx, qy,
+                    qz, q2, bd, bi, lim, tau);
     __syncwarp();
   }
   cp_async_wait<0>();
@@ -449,6 +521,25 @@ knn_kernel(const float* __restrict__ query, int Q,
       for (int s = 0; s < K; ++s) insert<K>(md, mi, cd[s], ci[s]);
     }
     const int qi = q0 + q;
+    if (Key && qi < Q) {
+      // the picks' exact d², in selection order; missing ones stay (1e12, 0)
+      const float* qp = query + 3 * static_cast<size_t>(qi);
+      const float ux = __fsub_rn(qp[0], cx), uy = __fsub_rn(qp[1], cy),
+                  uz = __fsub_rn(qp[2], cz);
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        if (md[s] < kFar) {
+          const float* tp = bank + 3 * static_cast<size_t>(mi[s]);
+          const float4 p = make_float4(__fsub_rn(tp[0], cx),
+                                       __fsub_rn(tp[1], cy),
+                                       __fsub_rn(tp[2], cz), 0.f);
+          md[s] = dist2(p, ux, uy, uz);
+        } else {
+          md[s] = kFar;
+          mi[s] = 0;
+        }
+      }
+    }
     if (qi < Q) {
 #pragma unroll
       for (int s = 0; s < K; ++s) {
@@ -460,15 +551,16 @@ knn_kernel(const float* __restrict__ query, int Q,
   cluster.sync();  // no CTA leaves while rank 0 still reads its lists
 }
 
-template <int K, int R>
+template <int K, int R, bool Key>
 cudaError_t launch(const float* query, const float* bank, const uint8_t* mask,
                    const float* center, float* out_d, int* out_i, int Q,
-                   int M, int warps, int C, int span, cudaStream_t stream) {
+                   int M, int warps, int C, int span, int bf16,
+                   cudaStream_t stream) {
   const int tiles = (Q + 32 * R - 1) / (32 * R);
   const size_t smem = Layout<K, R>::bytes(warps);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        knn_kernel<K, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        knn_kernel<K, R, Key>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
@@ -484,9 +576,9 @@ cudaError_t launch(const float* query, const float* bank, const uint8_t* mask,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, knn_kernel<K, R>, query, Q,
-                                             bank, mask, M, center, span,
-                                             out_d, out_i);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, knn_kernel<K, R, Key>,
+                                             query, Q, bank, mask, M, center,
+                                             span, bf16, out_d, out_i);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -496,16 +588,16 @@ struct Args {
   const uint8_t* m;
   float* od;
   int* oi;
-  int Q, M, warps, C, span;
+  int Q, M, warps, C, span, bf16;
   cudaStream_t st;
 };
 
-template <int R>
+template <int R, bool Key>
 cudaError_t dispatch_k(int k, const Args& a) {
 #define LMONO_KNN_CASE(K)                                                     \
   case K:                                                                     \
-    return launch<K, R>(a.q, a.t, a.m, a.c, a.od, a.oi, a.Q, a.M, a.warps,    \
-                        a.C, a.span, a.st);
+    return launch<K, R, Key>(a.q, a.t, a.m, a.c, a.od, a.oi, a.Q, a.M,        \
+                             a.warps, a.C, a.span, a.bf16, a.st);
   switch (k) {
     LMONO_KNN_CASE(1)
     LMONO_KNN_CASE(2)
@@ -526,14 +618,17 @@ cudaError_t dispatch_k(int k, const Args& a) {
 // or null; outputs out_d (Q,k) f32 and out_i (Q,k) int32.  All contiguous
 // on the current device.  The plan (ops/cuda/knn.py:knn_plan): R queries
 // per thread, `warps` warps per CTA, clusters of C CTAs, `span` bank rows
-// per warp slice, with C · warps · span >= M.  Enqueues on `stream` without
-// synchronising and returns the launch's CUDA error (0 on success).
+// per warp slice, with C · warps · span >= M.  select: 0 exact, 1 bf16x3,
+// 2 bf16; a library built with LMONO_KNN_KEY=0 takes 0 only, one built
+// with 1 takes 1 and 2.  Enqueues on `stream` without synchronising and
+// returns the launch's CUDA error (0 on success).
 extern "C" int lmono_knn(const void* query, const void* bank, const void* mask,
                          const void* center, void* out_d, void* out_i, int Q,
                          int M, int k, int R, int warps, int cluster, int span,
-                         void* stream) {
+                         int select, void* stream) {
   if (Q <= 0 || M <= 0 || span <= 0 || warps < 1 || warps > kMaxWarps ||
-      cluster < 1 || cluster > 8 ||
+      cluster < 1 || cluster > 8 || select < 0 || select > 2 ||
+      (select != 0) != (LMONO_KNN_KEY != 0) ||
       static_cast<long long>(cluster) * warps * span < M)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = {static_cast<const float*>(query),
@@ -542,11 +637,12 @@ extern "C" int lmono_knn(const void* query, const void* bank, const void* mask,
                   static_cast<const uint8_t*>(mask),
                   static_cast<float*>(out_d),
                   static_cast<int*>(out_i),
-                  Q, M, warps, cluster, span,
+                  Q, M, warps, cluster, span, select == 2 ? 1 : 0,
                   static_cast<cudaStream_t>(stream)};
+  constexpr bool kKey = LMONO_KNN_KEY != 0;
   switch (R) {
-    case 1: return static_cast<int>(dispatch_k<1>(k, a));
-    case 2: return static_cast<int>(dispatch_k<2>(k, a));
+    case 1: return static_cast<int>(dispatch_k<1, kKey>(k, a));
+    case 2: return static_cast<int>(dispatch_k<2, kKey>(k, a));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -136,21 +136,22 @@ class PlaneCorr(NamedTuple):
 def _knn_nbrs(query_w, bank, bank_mask, cfg: LidarConfig, center, axis=None):
     """k nearest neighbour distances and coords: (d2 (Q,k), nbrs (Q,k,3)).
 
-    Every `knn_impl` value means the exact KNN here; reduced-precision
-    neighbour selection (`knn_select` "bf16"/"bf16x3") is not ported.
+    Every `knn_impl` value means the same KNN here; `knn_select` picks the
+    selection key (`ops/knn.py:knn`): "exact" returns the neighbours by
+    ascending d², "bf16x3" and "bf16" in selection order with exact d², as
+    the JAX package's TPU route does.  Another value raises ValueError.
 
     axis: `bank` is this rank's shard; the shards' candidates, gathered in
     shard-major order, are merged by a stable sort on d², so a tie goes to
     the lower shard and then the lower index, the lower global index, as in
     the single-device KNN.  The global winners are among the union of the
-    per-shard winners, so the merge is exact.
+    per-shard winners, so the merge is exact.  A one-rank axis skips the
+    merge in exact mode, where the picks are sorted already.
     """
-    if cfg.knn_select != "exact":
-        raise NotImplementedError(
-            f"knn_select={cfg.knn_select!r}: only 'exact' is implemented")
-    d2, idx = knn(query_w, bank, bank_mask, cfg.knn_k, center=center)
+    d2, idx = knn(query_w, bank, bank_mask, cfg.knn_k, center=center,
+                  select=cfg.knn_select)
     nbrs = bank[idx]
-    if axis is None or axis.size == 1:
+    if axis is None or (axis.size == 1 and cfg.knn_select == "exact"):
         return d2, nbrs
     # one gather of (d², x, y, z) per candidate: (Q, D·k, 4)
     packed = axis.all_gather(torch.cat([d2[..., None], nbrs], -1), 1, tiled=True)

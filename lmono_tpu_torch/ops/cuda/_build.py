@@ -28,15 +28,19 @@ def nvcc() -> str:
     return path
 
 
-def build_library(source: str) -> tuple[ctypes.CDLL, str]:
-    """Compile `csrc/<source>` (once per source version) and load it.
+def build_library(source: str, defines: tuple[str, ...] = ()
+                  ) -> tuple[ctypes.CDLL, str]:
+    """Compile `csrc/<source>` (once per source version and set of
+    `defines`, NAME=VALUE strings passed to nvcc as -D flags) and load it.
 
     Returns the library and the compiler's report (`-Xptxas -v`:
     registers, shared memory and spills per kernel), empty when the library
     was already built.  Raises if `nvcc` fails.
     """
     src = CSRC / source
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes())
+    digest.update(" ".join(defines).encode())
+    tag = digest.hexdigest()[:16]
     so = BUILD / f"lib{src.stem}_{tag}.so"
     report = ""
     if not so.exists():
@@ -44,7 +48,8 @@ def build_library(source: str) -> tuple[ctypes.CDLL, str]:
         tmp = BUILD / f"lib{src.stem}_{tag}.{os.getpid()}.tmp.so"
         cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(src)]
+               "-Xptxas", "-v", *(f"-D{d}" for d in defines),
+               "-o", str(tmp), str(src)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source} ({res.returncode}):\n"

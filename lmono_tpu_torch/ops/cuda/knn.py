@@ -10,28 +10,41 @@ cluster and the warps of each CTA, and the partial lists are merged in
 shared and distributed shared memory.  `knn_plan` is the launch plan, a
 pure function of the shapes and the card's SM count.
 
+`select` picks the selection key (`ops/knn.py:SELECT_MODES`): "exact"
+selects on the difference-form d²; "bf16x3" and "bf16" on the expansion
+key (q² − 2·q·t) + t², whose cross term "bf16" forms over bf16-rounded
+coordinates, and then the kernel recomputes the picks' exact d².  The key
+modes are a second instantiation of the kernel, so the exact scan is
+unchanged; each instantiation set is a library of its own, built from
+the same source by its own nvcc run, both at once.
+
 `knn_kernel_launches` counts the calls that launched the kernel; the plain
-PyTorch version is `lmono_tpu_torch.ops.knn.knn_plain`.
+PyTorch versions are `lmono_tpu_torch.ops.knn.knn_plain` (exact) and
+`knn_select_plain` (the reduced keys).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import torch
 
 from lmono_tpu_torch.ops.cuda._build import build_library
+from lmono_tpu_torch.ops.knn import SELECT_MODES
 
 MAX_K = 8
+# lmono_knn's `select`: 0 exact, 1 bf16x3, 2 bf16
+SELECT_CODES = {mode: code for code, mode in enumerate(SELECT_MODES)}
 WARPS = 8              # warps per CTA: kMaxWarps in csrc/knn.cu
 MAX_CLUSTER = 8        # the portable cluster size
 MIN_SLICE_ROWS = 256   # fewest bank rows worth a warp slice of their own
 QUERIES_PER_THREAD = (2, 1)      # R, most preferred first
 
 knn_kernel_launches = 0
-_lib = None
+_libs: dict[bool, ctypes.CDLL] = {}   # Key instantiations? → library
 _build_report = ""
 
 
@@ -81,19 +94,26 @@ def knn_plan(Q: int, M: int, sms: int) -> KnnPlan:
 
 
 def build() -> str:
-    """Compile (once per source version) and load the kernel library.
+    """Compile (once per source version) and load the kernel's two
+    libraries, `csrc/knn.cu` with LMONO_KNN_KEY 0 (exact) and 1 (the
+    reduced keys), two nvcc runs side by side.
 
-    Returns the compiler's report (`-Xptxas -v`: registers, shared memory
-    and spills per kernel), empty when the library was already built.
+    Returns the compiler's reports (`-Xptxas -v`: registers, shared memory
+    and spills per kernel), empty when the libraries were already built.
     """
-    global _lib, _build_report
-    if _lib is not None:
+    global _build_report
+    if _libs:
         return _build_report
-    lib, _build_report = build_library("knn.cu")
-    lib.lmono_knn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                              + [ctypes.c_void_p])
-    lib.lmono_knn.restype = ctypes.c_int
-    _lib = lib
+    with ThreadPoolExecutor(2) as pool:
+        built = list(pool.map(
+            lambda key: build_library("knn.cu", (f"LMONO_KNN_KEY={int(key)}",)),
+            (False, True)))
+    for key, (lib, _) in zip((False, True), built):
+        lib.lmono_knn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                                  + [ctypes.c_void_p])
+        lib.lmono_knn.restype = ctypes.c_int
+        _libs[key] = lib
+    _build_report = "".join(report for _, report in built)
     return _build_report
 
 
@@ -104,14 +124,16 @@ def _sms(device: torch.device) -> int:
 
 def knn_cuda(query: torch.Tensor, target: torch.Tensor,
              target_mask: torch.Tensor, k: int,
-             center: torch.Tensor | None = None
+             center: torch.Tensor | None = None, select: str = "exact"
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact KNN on the card: query (Q,3) f32, target (M,3) f32, mask (M,)
+    """KNN on the card: query (Q,3) f32, target (M,3) f32, mask (M,)
     bool, and an optional centre (3,) f32 subtracted from both point sets
-    in the kernel, all contiguous on one CUDA device; 1 <= k <= 8.
+    in the kernel, all contiguous on one CUDA device; 1 <= k <= 8; `select`
+    a key of SELECT_CODES.
 
-    Returns (d² (Q,k) f32 ascending, idx (Q,k) int32), enqueued on the
-    current stream without synchronising.  Raises on any other input.
+    Returns (d² (Q,k) f32, idx (Q,k) int32): ascending d² for "exact",
+    selection order for the reduced keys; enqueued on the current stream
+    without synchronising.  Raises on any other input.
     """
     global knn_kernel_launches
     tensors = (query, target, target_mask) + (() if center is None else (center,))
@@ -135,6 +157,8 @@ def knn_cuda(query: torch.Tensor, target: torch.Tensor,
         raise ValueError("center must be a (3,) float32 tensor")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("knn_cuda needs contiguous tensors")
+    if select not in SELECT_CODES:
+        raise ValueError(f"select must be one of {SELECT_MODES}, got {select!r}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"knn_cuda supports 1 <= k <= {MAX_K}, got {k}")
     if Q == 0 or M == 0:
@@ -148,11 +172,11 @@ def knn_cuda(query: torch.Tensor, target: torch.Tensor,
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib.lmono_knn(
+        err = _libs[select != "exact"].lmono_knn(
             query.data_ptr(), target.data_ptr(), target_mask.data_ptr(),
             None if center is None else center.data_ptr(),
             out_d.data_ptr(), out_i.data_ptr(), Q, M, k, plan.R, plan.warps,
-            plan.cluster, plan.span, stream)
+            plan.cluster, plan.span, SELECT_CODES[select], stream)
     if err != 0:
         raise RuntimeError(f"knn kernel launch failed: CUDA error {err}")
     knn_kernel_launches += 1

@@ -276,3 +276,174 @@ def test_cuda_kernel_matches_plain(Q, M, keep):
     sk = torch.sort(torch.where(found, i, -1), 1).values[gap]
     sp = torch.sort(torch.where(found, i_p[:, :5], -1), 1).values[gap]
     assert torch.equal(sk, sp)
+
+
+# --------------------------------------------------------------------------
+# Reduced-precision selection (`select` "bf16x3" / "bf16"): the JAX package
+# reads LidarConfig.knn_select only on its TPU route, so the reference is
+# that route on the CPU (`jax.default_backend` patched to "tpu"), where
+# `approx_min_k` is exact with ties to the lower index.
+#
+# Tolerances.  Both sides select on the f32 key (q² − 2·q·t) + t² over the
+# recentred coordinates (the cross term over bf16-rounded ones for "bf16"),
+# but the reference forms the dot and the squared norms in XLA's order, so
+# two keys may differ by a few roundings: KEY_ULPS · 2⁻²³ · (|q| + |t|)²
+# bounds that (it covers 2⁻²³·(q² + 2|q||t| + t²) for each of the ~8
+# roundings on either side).  Where every gap between a row's k+1 smallest
+# keys exceeds it, the index lists must be equal and the d² within 1e-6
+# relative (both exact difference forms); elsewhere each position's keys
+# must agree within it.  Missing entries: d² 1e12 on both sides; the
+# reference's index is whichever masked row `approx_min_k` picks, the
+# port's 0, so indices are compared only where d² < 1e12.
+# --------------------------------------------------------------------------
+
+KEY_ULPS = 16
+SEL_RTOL = 1e-6
+
+
+@pytest.fixture
+def jax_tpu_route(monkeypatch):
+    import jax
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+
+
+def _jax_select(q, t, mask, k, center, select):
+    import jax
+    import jax.numpy as jnp
+
+    kw = ({"select_dtype": jnp.bfloat16} if select == "bf16"
+          else {"select_precision": jax.lax.Precision.HIGH})
+    d, i = jax_knn(jnp.asarray(q), jnp.asarray(t), jnp.asarray(mask), k,
+                   center=jnp.asarray(center), **kw)
+    return np.asarray(d), np.asarray(i)
+
+
+def _keys64(q, t, center, select):
+    """The selection key of every pair in float64 from the f32-recentred
+    (and, for "bf16", bf16-rounded) coordinates: (Q, M)."""
+    qc = torch.from_numpy(q) - torch.from_numpy(center)
+    tc = torch.from_numpy(t) - torch.from_numpy(center)
+    qs, ts = qc, tc
+    if select == "bf16":
+        qs, ts = (x.to(torch.bfloat16).float() for x in (qc, tc))
+    qc, tc, qs, ts = (x.double().numpy() for x in (qc, tc, qs, ts))
+    key = ((qc * qc).sum(1)[:, None] - 2.0 * qs @ ts.T + (tc * tc).sum(1)[None, :])
+    bound = (KEY_ULPS * 2.0 ** -23
+             * (np.linalg.norm(qc, axis=1)[:, None] + np.linalg.norm(tc, axis=1).max()) ** 2)
+    return key, bound[:, 0]
+
+
+def _check_select(q, t, mask, center, select, d_ref, i_ref, d, i, k=5):
+    d, i = d.numpy(), i.numpy().astype(np.int64)
+    key, bound = _keys64(q, t, center, select)
+    key = np.where(mask[None, :], key, np.inf)
+    kth = np.sort(key, axis=1)[:, :k + 1]
+    found, found_ref = d < 1e11, d_ref < 1e11
+    np.testing.assert_array_equal(found, found_ref)
+    assert (d[~found] == np.float32(1e12)).all() and (i[~found] == 0).all()
+    assert (d_ref[~found_ref] == np.float32(1e12)).all()
+    with np.errstate(invalid="ignore"):
+        safe = (~np.isfinite(kth[:, 1:])
+                | (np.diff(kth, axis=1) > bound[:, None])).all(axis=1)
+    rows = np.arange(len(q))[:, None]
+    for side, (dd, ii) in (("port", (d, i)), ("reference", (d_ref, i_ref))):
+        # every pick's key sits at its rank's key, within the bound
+        pk = np.where(dd < 1e11, key[rows, ii], np.inf)
+        gap = np.abs(np.where(np.isfinite(pk), pk - kth[:, :k], 0.0))
+        assert (gap <= bound[:, None]).all(), side
+    same = (i == i_ref) & found
+    np.testing.assert_allclose(d[same], d_ref[same], rtol=SEL_RTOL, atol=1e-9)
+    assert (same | ~found)[safe].all()
+    return safe.mean()
+
+
+SELECT_CASES = {
+    # world-scale coordinates recentred, every row valid
+    "centred": dict(scale=10.0, offset=1000.0, keep=1.0),
+    # about a third of the bank masked
+    "masked": dict(scale=10.0, offset=100.0, keep=0.65),
+    # three valid rows for k = 5
+    "fewer_than_k": dict(scale=10.0, offset=100.0, keep=None),
+}
+
+
+def _select_case(name, Q=150, M=700):
+    kw = SELECT_CASES[name]
+    q, t, mask = _case(21 + len(name), Q, M, kw["keep"] or 1.0, kw["scale"], kw["offset"])
+    if kw["keep"] is None:
+        mask = np.zeros(M, bool)
+        mask[[5, 300, 611]] = True
+    center = np.full(3, kw["offset"], np.float32) + np.array([0.5, -0.25, 0.125], np.float32)
+    return q, t, mask, center
+
+
+@pytest.mark.parametrize("case", list(SELECT_CASES))
+@pytest.mark.parametrize("select", ["bf16x3", "bf16"])
+def test_select_matches_the_jax_tpu_route(jax_tpu_route, select, case):
+    q, t, mask, center = _select_case(case)
+    d_ref, i_ref = _jax_select(q, t, mask, 5, center, select)
+    d, i = tk.knn(*(torch.from_numpy(x) for x in (q, t, mask)), 5,
+                  center=torch.from_numpy(center), select=select)
+    assert d.dtype == torch.float32 and i.dtype == torch.int32
+    safe = _check_select(q, t, mask, center, select, d_ref, i_ref, d, i)
+    assert safe > 0.9
+    if case == "fewer_than_k":
+        assert (d[:, 3:] == 1e12).all() and (d[:, :3] < 1e11).all()
+        assert set(i[0, :3].tolist()) == {5, 300, 611}
+
+
+def test_bf16_select_returns_selection_order():
+    # the bf16 key misorders near neighbours: d² is not re-sorted
+    q, t, mask, center = _select_case("masked")
+    args = [torch.from_numpy(x) for x in (q, t, mask)]
+    d, i = tk.knn(*args, 5, center=torch.from_numpy(center), select="bf16")
+    key, _ = _keys64(q, t, center, "bf16")
+    picked = key[np.arange(len(q))[:, None], i.numpy()]
+    assert (np.diff(picked, axis=1) >= 0).all()
+    assert (np.diff(d.numpy(), axis=1) < 0).any()
+
+
+def test_select_plain_chunking_and_counts():
+    q, t, mask, center = _select_case("masked", Q=64, M=500)
+    c = torch.from_numpy(center)
+    args = [torch.from_numpy(q) - c, torch.from_numpy(t) - c, torch.from_numpy(mask)]
+    for select in ("bf16x3", "bf16"):
+        d1, i1 = tk.knn_select_plain(*args, 5, select, chunk=4096)
+        d2, i2 = tk.knn_select_plain(*args, 5, select, chunk=37)
+        assert torch.equal(d1, d2) and torch.equal(i1, i2)
+    before = tk.knn_plain_calls
+    tk.knn(*[torch.from_numpy(x) for x in (q, t, mask)], 5, select="bf16x3")
+    assert tk.knn_plain_calls == before + 1
+
+
+def test_unknown_select_raises():
+    q, t, mask = _case(30, 8, 32, 1.0)
+    args = [torch.from_numpy(x) for x in (q, t, mask)]
+    for select in ("fp16", "EXACT", None):
+        with pytest.raises(ValueError):
+            tk.knn(*args, 5, select=select)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("select", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("Q,M,keep", [(1536, 32768, 0.9), (777, 3001, 0.001),
+                                      (4096, 65536, 0.9), (512, 512, 0.9)])
+def test_cuda_select_matches_plain(select, Q, M, keep):
+    # the kernel forms the plain version's keys bit for bit: equal index
+    # lists; d² within 1e-6 relative (fused multiply-adds in the kernel's
+    # difference form)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lmono_tpu_torch.ops.cuda import knn as ck
+
+    q, t, mask = _case(40, Q, M, keep, scale=20.0, offset=1000.0)
+    dev = torch.device("cuda")
+    tq, tt, tm = (torch.from_numpy(x).to(dev) for x in (q, t, mask))
+    c = torch.tensor([1000.0, 990.0, 1010.0], device=dev)
+    before = ck.knn_kernel_launches
+    d, i = tk.knn(tq, tt, tm, 5, center=c, select=select)
+    assert ck.knn_kernel_launches == before + 1
+    d_p, i_p = tk.knn_select_plain(tq - c, tt - c, tm, 5, select)
+    assert torch.equal(i.cpu(), i_p.cpu())
+    torch.testing.assert_close(d.cpu(), d_p.cpu(), rtol=1e-6, atol=1e-9)

@@ -13,6 +13,8 @@ from the same perturbed start on the same banks: within 1e-4 m and
 boundary).
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -99,6 +101,7 @@ def test_eigvals_match_and_stay_finite_when_degenerate():
     assert sel.sum() > 10
 
 
+@functools.lru_cache(maxsize=None)
 def _register_inputs():
     cfg = synthetic_config().lidar
     scene = jsyn.make_city_scene()
@@ -141,11 +144,56 @@ def test_register_matches(iters):
     assert float(np.linalg.norm(tpose.t.numpy() - np.asarray(truth.t))) < err0 / 3
 
 
-def test_knn_select_other_than_exact_raises():
+@pytest.mark.parametrize("select", ["bf16x3", "bf16"])
+def test_register_matches_under_reduced_knn_select(monkeypatch, select):
+    # the JAX package reads knn_select on its TPU route only: patch the
+    # backend, as tests/test_torch_knn.py does, so its KNN takes that route
+    import dataclasses
+
+    import jax
+
+    cfg, start, truth, arrays = _register_inputs()
+    cfg = dataclasses.replace(cfg, knn_select=select)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    jpose, jdiag = jr.register(start, *[jnp.asarray(a) for a in arrays], cfg, 4)
+    tstart = TPose(torch.from_numpy(np.array(start.t)), torch.from_numpy(np.array(start.q)))
+    tpose, tdiag = tr.register(tstart, *[torch.from_numpy(a) for a in arrays], cfg, 4)
+    np.testing.assert_allclose(tdiag["inliers"].numpy(), np.asarray(jdiag["inliers"]),
+                               rtol=0.01)
+    np.testing.assert_allclose(np.asarray(jpose.t), tpose.t.numpy(), rtol=0, atol=T_ATOL_M)
+    rot = boxminus(torch.from_numpy(np.array(jpose.q)), tpose.q)
+    assert float(rot.norm()) < R_ATOL_RAD
+    err0 = float(np.linalg.norm(np.asarray(start.t) - np.asarray(truth.t)))
+    assert float(np.linalg.norm(tpose.t.numpy() - np.asarray(truth.t))) < err0 / 3
+
+
+def test_unknown_knn_select_raises():
     import dataclasses
 
     cfg, start, _, arrays = _register_inputs()
-    cfg = dataclasses.replace(cfg, knn_select="bf16")
+    cfg = dataclasses.replace(cfg, knn_select="fp16")
     tstart = TPose(torch.from_numpy(np.array(start.t)), torch.from_numpy(np.array(start.q)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tr.register(tstart, *[torch.from_numpy(a) for a in arrays], cfg, 2)
+
+
+def test_reduced_knn_select_on_a_mesh_axis_merges_by_exact_d2():
+    # on a mesh axis the reference merges the shards' picks by top_k of
+    # their exact d² (one shard included); without an axis the picks stay
+    # in selection order
+    import dataclasses
+
+    from lmono_tpu_torch.parallel.mesh import Axis
+
+    cfg, _, _, arrays = _register_inputs()
+    cfg = dataclasses.replace(cfg, knn_select="bf16")
+    query = torch.from_numpy(arrays[2][:256])
+    bank, mask = torch.from_numpy(arrays[6]), torch.from_numpy(arrays[7])
+    center = query.mean(0)
+    d_sel, n_sel = tr._knn_nbrs(query, bank, mask, cfg, center)
+    d_ax, n_ax = tr._knn_nbrs(query, bank, mask, cfg, center, Axis("map", None, 1, 0))
+    assert (torch.diff(d_ax, dim=1) >= 0).all()
+    assert (torch.diff(d_sel, dim=1) < 0).any()
+    order = torch.sort(d_sel, dim=1, stable=True).indices
+    assert torch.equal(d_ax, torch.gather(d_sel, 1, order))
+    assert torch.equal(n_ax, torch.gather(n_sel, 1, order[..., None].expand(-1, -1, 3)))
