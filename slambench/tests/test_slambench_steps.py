@@ -1,0 +1,192 @@
+"""The step references on the CPU: each stage's sound answer reads near 0,
+its bfloat16 control and a planted fault read above the limits."""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import math
+import types
+
+import pytest
+import torch
+
+from slambench import control, harness, reference, steps
+from slambench.tests.tiny import make_copy
+
+CELL = "tiny.shortlap"
+
+
+@contextlib.contextmanager
+def _eigh_in_float64():
+    """MKL's float32 eigh fails to converge on some of the small window's
+    reduced information matrices, and the port then carries a NaN prior
+    (`marginalization._eigh`); the CPU runs here take it in float64."""
+    import lmono_tpu_torch.estimator.marginalization as marg
+
+    orig = marg._eigh
+    marg._eigh = lambda S: tuple(x.to(S.dtype) for x in torch.linalg.eigh(S.double()))
+    try:
+        yield
+    finally:
+        marg._eigh = orig
+
+
+def _run(root, seed, seconds=5.0):
+    torch.set_num_threads(4)
+    return harness.run_cell(root, CELL, seed, seconds, False, device="cpu",
+                            bench_dir=root / "slambench", log=lambda s: None)
+
+
+def _control(run, root):
+    conf = json.loads((root / "slambench/configs/tiny.json").read_text())
+    return reference.judge(run["drive"], control.control_answers(run["drive"], run["answers"]),
+                           conf["system"]["mapping"], control_dtype=control.LOW)
+
+
+@pytest.fixture(scope="module")
+def marg_copy(tmp_path_factory):
+    return make_copy(tmp_path_factory.mktemp("marg"),
+                     limits={"laser_rpe_m": 0.3, "marg_prior_rel": 1e-4})
+
+
+def test_marginalization_follows_the_reference(marg_copy):
+    with _eigh_in_float64():
+        run = _run(marg_copy, seed=5)
+    assert run["answers"].margs
+    assert run["readings"]["marg_prior_rel"] < 1e-5 and run["result"]["correct"]
+    assert _control(run, marg_copy)["marg_prior_rel"] > 1e-3
+
+
+def test_stale_prior_is_not_correct(marg_copy):
+    """A marginalization that hands back the window's prior unchanged."""
+    import lmono_tpu_torch.estimator.estimator as est
+
+    orig = est.marginalize_oldest
+
+    def stale(state, cfg, axis=None):
+        orig(state, cfg, axis=axis)
+        return state.prior
+
+    est.marginalize_oldest = stale
+    try:
+        with _eigh_in_float64():
+            run = _run(marg_copy, seed=6)
+    finally:
+        est.marginalize_oldest = orig
+    assert not run["result"]["correct"], run["checks"]
+    assert run["readings"]["marg_prior_rel"] > 1e-4
+
+
+def test_relative_pose_of_two_views():
+    """A 1.44° yaw and a forward step seen through 120 tracks: the port's
+    RANSAC agrees with the reference's best; the bfloat16 control, a
+    refusal and the identity do not."""
+    from lmono_tpu_torch.estimator.initializer import relative_pose_from_tracks
+    from lmono_tpu_torch.ops.ransac import gumbel_noise
+
+    g = torch.Generator().manual_seed(0)
+    pts = (torch.randn(120, 3, generator=g) * torch.tensor([8.0, 3.0, 1.0])
+           + torch.tensor([0.0, 0.0, 15.0]))
+    th = math.radians(1.44)
+    R = torch.tensor([[math.cos(th), 0.0, math.sin(th)], [0.0, 1.0, 0.0],
+                      [-math.sin(th), 0.0, math.cos(th)]])
+    p1 = pts @ R.T + torch.tensor([0.05, 0.0, -0.8])
+    x0 = pts[:, :2] / pts[:, 2:]
+    x1 = p1[:, :2] / p1[:, 2:] + 0.3 / 700 * torch.randn(120, 2, generator=g)
+    mask = torch.rand(120, generator=g) < 0.9
+    gum = gumbel_noise((96, 8, 120), torch.Generator().manual_seed(3))
+    q, ok = relative_pose_from_tracks(x0, x1, mask, gum)
+    assert bool(ok)
+    call = (x0, x1, mask, gum, q, ok)
+    assert steps.relpose_gaps([call]) [0] < 1e-3
+    assert steps.relpose_gaps([call], control.LOW, control=True)[0] > 0.05
+    assert steps.relpose_gaps([(x0, x1, mask, gum, q, torch.tensor(False))])[0] == 180.0
+    assert steps.relpose_gaps([(x0, x1, mask, gum, torch.tensor([1.0, 0, 0, 0]), ok)])[0] > 0.5
+
+
+def test_refused_relative_pose_is_not_correct(tmp_path):
+    """The small cell calibrating from the identity: every relative pose
+    refused where it is produced."""
+    dest = make_copy(tmp_path, limits={"laser_rpe_m": 0.3, "relpose_deg": 0.05})
+    conf = json.loads((dest / "slambench/configs/tiny.json").read_text())
+    conf["system"]["estimator"].update(estimate_laser=2, fine_times=3)
+    conf["system"]["laser_to_camera"] = None
+    (dest / "slambench/configs/tiny.json").write_text(json.dumps(conf))
+    import lmono_tpu_torch.estimator.estimator as est
+
+    orig = est.relative_pose_from_tracks
+
+    def refused(*args):
+        q, ok = orig(*args)
+        return q, torch.zeros_like(ok)
+
+    est.relative_pose_from_tracks = refused
+    try:
+        run = _run(dest, seed=8)
+    finally:
+        est.relative_pose_from_tracks = orig
+    assert len(run["answers"].relpose) >= 3
+    assert run["readings"]["relpose_deg"] == 180.0 and not run["result"]["correct"]
+
+
+def _graph(n=30):
+    """A lap of n keyframes with a drift in yaw and position, and three loop
+    edges that say where its end truly is."""
+    from lmono_tpu_torch.loop.posegraph import PoseGraph, graph_add_loop, graph_add_node
+    from lmono_tpu_torch.utils.lie import Pose, mat_to_quat, ypr_to_mat
+
+    def pose(a, drift):
+        t = torch.tensor([32.0 * math.cos(a) + drift, 32.0 * math.sin(a), 0.0])
+        ypr = torch.tensor([a + math.pi / 2 + 0.1 * drift, 0.01, -0.02])
+        return Pose(t, mat_to_quat(ypr_to_mat(ypr)))
+
+    g = PoseGraph.empty(64)
+    lap = n - 5
+    for i in range(n):
+        graph_add_node(g, pose(2 * math.pi * i / lap, 0.02 * i), i)
+    for k, (i, j) in enumerate(((1, lap + 1), (2, lap + 2), (3, lap + 3))):
+        a = 2 * math.pi * i / lap
+        rel = pose(a, 0.0).inverse().compose(pose(a + 2 * math.pi, 0.0))
+        graph_add_loop(g, i, j, rel, k)
+    return g
+
+
+def _captured(optimize):
+    """The harness's capture of one pose-graph solve, driven through the
+    port's `pipeline.optimize_posegraph` (replaced by `optimize`)."""
+    import lmono_tpu_torch.pipeline as pipe
+
+    rec = harness.Recorder()
+    rec.frame = 0
+    system = types.SimpleNamespace(front=types.SimpleNamespace(process=lambda *a, **k: None))
+    orig = pipe.optimize_posegraph
+    pipe.optimize_posegraph = optimize
+    try:
+        with harness.Patches() as p:
+            harness._install_captures(p, rec, system, lambda n: n)
+            pipe.optimize_posegraph(_graph(), iters=20)
+    finally:
+        pipe.optimize_posegraph = orig
+    return rec.solves
+
+
+def test_graph_solve_follows_the_reference():
+    from lmono_tpu_torch.loop.posegraph import optimize_posegraph
+
+    solves = _captured(optimize_posegraph)
+    assert len(solves) == 1
+    assert steps.graph_excess(solves[0]) < 1e-3
+    assert steps.graph_excess(solves[0], control=True, dtype=control.LOW) > 0.1
+
+
+def test_unchanged_graph_is_not_correct():
+    """A solve that returns the graph it was handed."""
+    solves = _captured(lambda g, **kwargs: g)
+    ans = reference.Answers(idx=[0], laser=(torch.zeros(1, 3), torch.zeros(1, 4)),
+                            pose=(torch.zeros(1, 3), torch.zeros(1, 4)), solves=solves,
+                            loops_expected=True)
+    readings = {"graph_excess": max(steps.graph_excess(s) for s in ans.solves)}
+    assert readings["graph_excess"] == pytest.approx(1.0)
+    ok, _ = reference.compare(readings, {"graph_excess": 0.05})
+    assert not ok
