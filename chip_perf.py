@@ -5,6 +5,7 @@
     python3 chip_perf.py --capture-loop FILE.npz
     python3 chip_perf.py --calib-seeds 7,8,9,10 [--calib-fine-times 3,1000]
     python3 chip_perf.py --calib-capture FILE.npz
+    python3 chip_perf.py --spans kitti00.lap1,kitti00.revisit
 
 Times the port's two hand-written kernels through the entry points that its
 slices call, and takes `torch.profiler` windows of the KITTI-scale
@@ -30,14 +31,23 @@ both on the same card one after the other, in turns (old, new, new, old).
    after 50): device ms per frame, busy share, kernels per frame, K1's and
    K2's shares and, as profiler ranges, the window solve, the
    marginalization and the tracker's RANSAC (device ms and share, host ms
-   and share of the profiled window's wall time), and LM attempts and
-   read-backs per frame;
+   and share of the profiled window's wall time; the port's own spans,
+   `lmono_tpu_torch/utils/timing.py`, open these ranges), and LM attempts
+   and read-backs per frame;
 5. profile-system-kitti: `SlamSystem.process_chunk` at KITTI scale on the
    circuit (260 frames of warm-up, the first lap and the start of the
    revisit, then 10 frames profiled while closures fire, and the reap of
    their detections): the same fields,
    and as ranges the window solve, the loop lane's keyframe step, the
    reaps (their pose-graph solves included) and the dense-map merge.
+
+`--spans` instead runs whole `slambench` cells (the benchmark's own
+profiler off, the port's tracer on for every window frame) and prints, a
+`[spans]` line and one JSON line a cell, the host ms a frame of every
+span, the frame's account (its direct children and what none of them
+owns) beside the frame's wall time, and over 12 profiled frames the device
+ops by the innermost span open at their launch and the card's idle share
+inside each span (`span_table`).
 
 `--capture-loop` instead runs `chip_smoke.py`'s system-kitti cell alone
 and saves what its graph lane consumed, for a CPU replay against the JAX
@@ -105,11 +115,10 @@ def _batched_ms(fn) -> float:
 
 def _device_events(prof) -> list:
     """The kernels and copies of a profiler window (not the device-side
-    marks of the pipeline window's ranges)."""
-    labels = {label for _, _, label in PIPE_RANGES + SYSTEM_RANGES}
+    marks of the port's spans)."""
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name not in labels]
+            and not e.is_user_annotation]
 
 
 def _device_per_call(fn) -> dict:
@@ -261,46 +270,20 @@ def profile_windows(dev) -> None:
         **_window(prof, 10, wall, "lk"))
 
 
-# the stages of the fused step that the pipeline window times as ranges:
-# (module, function, range name)
-PIPE_RANGES = [("lmono_tpu_torch.estimator.estimator", "solve_window", "solve_window"),
-               ("lmono_tpu_torch.estimator.estimator", "marginalize_oldest",
-                "marginalize_oldest"),
-               ("lmono_tpu_torch.estimator.tracker", "ransac_fundamental",
-                "tracker_ransac")]
+# the port's spans (`lmono_tpu_torch/utils/timing.py`) that the pipeline
+# window and the system window report: each opens a profiler range
+PIPE_RANGES = ["window_solve", "marginalization", "tracker.ransac"]
+SYSTEM_RANGES = ["window_solve", "loop_lane", "reap", "map"]
 
 
-# and those of the system step: a class's method is named Class.method
-SYSTEM_RANGES = [("lmono_tpu_torch.estimator.estimator", "solve_window", "solve_window"),
-                 ("lmono_tpu_torch.pipeline", "SlamSystem._loop_lane_chunk", "loop_lane"),
-                 ("lmono_tpu_torch.pipeline", "SlamSystem._reap_loops", "reap"),
-                 ("lmono_tpu_torch.fused", "colormap_update_hash", "map_merge")]
+def _tracing(system=None):
+    """The port's tracer (`system`'s own, or a fresh one), active and
+    opening a profiler range per span for a profiled window."""
+    from lmono_tpu_torch.utils import timing
 
-
-_RANGED: set = set()
-
-
-def _in_range(mod_name: str, fn_name: str, label: str) -> None:
-    """Run `mod_name.fn_name` (or a class's method, `Class.method`) inside a
-    profiler range named `label`, once however often it is asked."""
-    import importlib
-
-    from torch.profiler import record_function
-
-    if (mod_name, fn_name, label) in _RANGED:
-        return
-    _RANGED.add((mod_name, fn_name, label))
-    owner = importlib.import_module(mod_name)
-    *path, name = fn_name.split(".")
-    for part in path:
-        owner = getattr(owner, part)
-    fn = getattr(owner, name)
-
-    def ranged(*args, **kwargs):
-        with record_function(label):
-            return fn(*args, **kwargs)
-
-    setattr(owner, name, ranged)
+    tracer = system.tracer if system is not None else timing.Tracer()
+    tracer.ranges = True
+    return timing.tracing(tracer)
 
 
 def _range_fields(prof, ranges, frames: int, prof_wall: float) -> dict:
@@ -308,7 +291,7 @@ def _range_fields(prof, ranges, frames: int, prof_wall: float) -> dict:
     window's device time and profiled wall time."""
     total = sum(e.time_range.elapsed_us() for e in _device_events(prof))
     fields = {}
-    for _, _, label in ranges:
+    for label in ranges:
         ev = [e for e in prof.events() if e.name == label
               and e.device_type == torch.autograd.DeviceType.CPU]
         d_us = sum(e.device_time_total for e in ev)
@@ -335,8 +318,6 @@ def profile_pipeline(dev) -> None:
     from lmono_tpu_torch.io import synthetic as syn
     from lmono_tpu_torch.utils.lie import Pose
 
-    for r in PIPE_RANGES:
-        _in_range(*r)
     cfg = kitti_scale_config()
     scene = syn.make_city_scene(device=dev)
     traj = syn.circuit_trajectory(120, device=dev)
@@ -360,7 +341,8 @@ def profile_pipeline(dev) -> None:
     fp.process_chunk(chunks[4])
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / 10
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            _tracing():
         t0 = time.perf_counter()
         out = fp.process_chunk(chunks[5])
         torch.cuda.synchronize()
@@ -387,8 +369,6 @@ def profile_system(dev) -> None:
     from lmono_tpu_torch.pipeline import SlamSystem
     from lmono_tpu_torch.utils.lie import Pose
 
-    for r in SYSTEM_RANGES:
-        _in_range(*r)
     warm, n, last_n = 13, 20, 10
     T_CL = syn.synthetic_T_CL(device=dev)
     cfg = kitti_scale_config().replace(
@@ -414,7 +394,8 @@ def profile_system(dev) -> None:
     last = chunk(warm, last_n)
     torch.cuda.synchronize()
     loops0, kf0, reads0 = system.n_loops, system.keyframes_processed, system.readbacks
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            _tracing(system):
         t0 = time.perf_counter()
         out = system.process_chunk(last, t0=warm * n * 0.1)
         system._reap_loops()
@@ -430,6 +411,221 @@ def profile_system(dev) -> None:
         system_readbacks=system.readbacks - reads0,
         estimator_readbacks=int(out["readbacks"].sum()),
         graph_capacity=system.graph.t.shape[0], **fields)
+
+
+def _idle_ns(gaps: list, gap_t0: list, a: int, b: int) -> int:
+    """Length of [a, b] that falls into the sorted idle intervals `gaps`
+    (`gap_t0` their starts)."""
+    import bisect
+
+    i, got = max(0, bisect.bisect_right(gap_t0, a) - 1), 0
+    while i < len(gaps) and gaps[i][0] < b:
+        got += max(0, min(b, gaps[i][1]) - max(a, gaps[i][0]))
+        i += 1
+    return got
+
+
+def _span_device(prof, records: list, frames: int) -> dict:
+    """Device ops of a profile of traced frames, each counted against the
+    innermost span open at its launch (the runtime call with the same
+    correlation id, on the profiler's clock), and the card's idle share
+    inside each span name (idle: `slambench`'s gaps between the device
+    intervals, and the time before the first and after the last)."""
+    import bisect
+
+    from slambench.harness import _device_stats
+
+    start = prof.profiler.kineto_results.trace_start_ns()
+    ev = prof.events()
+    dev_ops = [e for e in ev if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    launch = {e.id: start + int(e.time_range.start * 1e3) for e in ev
+              if e.device_type == torch.autograd.DeviceType.CPU
+              and e.name.startswith("cuda")}
+    frames_of: dict = {}
+    for r in records:
+        frames_of.setdefault(r.frame, []).append(r)
+    roots = sorted((r.t0, r.t1, r.frame) for r in records if r.name == "frame")
+    root_t0 = [r[0] for r in roots]
+    launches, unmatched, outside = {}, 0, 0
+    for e in dev_ops:
+        t = launch.get(e.id)
+        if t is None:
+            unmatched += 1
+            continue
+        k = bisect.bisect_right(root_t0, t) - 1
+        if k < 0 or roots[k][1] < t:
+            outside += 1
+            continue
+        best = None
+        for r in frames_of[roots[k][2]]:
+            if r.t0 <= t <= r.t1 and (best is None or r.t0 >= best.t0):
+                best = r
+        launches[best.name] = launches.get(best.name, 0) + 1
+    ns = lambda us: start + int(us * 1e3)                # noqa: E731
+    stats = _device_stats(prof, 0.0)
+    last = max((e.time_range.end for e in dev_ops), default=stats["first_us"])
+    gaps = ([(-1 << 62, ns(stats["first_us"]))]
+            + [(ns(a), ns(b)) for a, b in stats["gaps_us"]] + [(ns(last), 1 << 62)])
+    gap_t0 = [g[0] for g in gaps]
+    idle = {}
+    for r in records:
+        i = idle.setdefault(r.name, [0, 0])
+        i[0] += r.t1 - r.t0
+        i[1] += _idle_ns(gaps, gap_t0, r.t0, r.t1)
+    n = len(dev_ops)
+    return {"device_ops_per_frame": n / frames,
+            "launches_per_frame": {k: v / frames for k, v in sorted(launches.items())},
+            "inside_frame_share": (n - unmatched - outside) / n if n else None,
+            "ops_without_launch_record": unmatched, "ops_outside_frames": outside,
+            "idle_pct": {k: 100.0 * b / a for k, (a, b) in sorted(idle.items()) if a}}
+
+
+def _range_offsets(prof, records: list) -> dict:
+    """How far each span's profiler range lies outside the tracer's own
+    [t0, t1] (ns; <= 0 inside), placed by the profile's trace_start_ns."""
+    start = prof.profiler.kineto_results.trace_start_ns()
+    marks: dict = {}
+    for e in prof.events():
+        if e.is_user_annotation and e.device_type == torch.autograd.DeviceType.CPU:
+            marks.setdefault(e.name, []).append(
+                (start + int(e.time_range.start * 1e3), start + int(e.time_range.end * 1e3)))
+    worst, n = None, 0
+    for name, got in marks.items():
+        mine = sorted((r.t0, r.t1) for r in records if r.name == name)
+        for (t0, t1), (a, b) in zip(mine, sorted(got)):
+            d = max(t0 - a, b - t1)
+            worst = d if worst is None else max(worst, d)
+            n += 1
+    return {"ranges": n, "spans": len(records), "worst_outside_ns": worst}
+
+
+def _host_table(recs: list, frames: set) -> dict:
+    """Host ms and spans a frame by span name over `frames`, and the
+    frame's account as `slambench`'s span metrics read it: its direct
+    children, what none of them owns, and what is left of the frame after
+    both (0 but for rounding)."""
+    from slambench import spans
+
+    by_frame: dict = {}
+    for r in recs:
+        if r.frame in frames:
+            by_frame.setdefault(r.frame, []).append(r)
+    traced = spans.frames(list(by_frame.values()))
+    nf = max(1, len(traced))
+    ms, n, child = {}, {}, {}
+    for rs in traced:
+        root = next(r for r in rs if r.name == "frame")
+        for r in rs:
+            ms[r.name] = ms.get(r.name, 0) + (r.t1 - r.t0) * 1e-6 / nf
+            n[r.name] = n.get(r.name, 0) + 1 / nf
+            if r.parent == root.id:
+                child[r.name] = child.get(r.name, 0) + (r.t1 - r.t0) * 1e-6 / nf
+    frame_ms = spans.per_frame(traced, lambda rs: spans.ms(rs, "frame")) or 0.0
+    unspanned = spans.per_frame(traced, spans.unspanned_ms) or 0.0
+    kids = sum(child.values())
+    return {"frames": len(traced), "frame_ms": frame_ms, "children_ms": kids,
+            "unspanned_ms": unspanned, "rest_ms": frame_ms - kids - unspanned,
+            "host_ms": dict(sorted(ms.items())), "spans": dict(sorted(n.items())),
+            "direct_children_ms": dict(sorted(child.items()))}
+
+
+# `--spans`: each run's window (s), the unprofiled window frames before the
+# profiles, and the frames of the CUDA-only profile
+SPAN_SECONDS, SPAN_SKIP, SPAN_PROFILED = 100.0, 30, 12
+
+
+def span_table(dev, cells: list) -> None:
+    """The port's spans over whole benchmark runs (`slambench`, its own
+    profiler off, the port's tracer on for every window frame): host ms and
+    spans a frame by span name and the frame's account (its direct children
+    and what none of them owns) beside the frames' wall time, over the
+    unprofiled window frames (the first SPAN_SKIP and those after the
+    profiles) and over the profiled ones.  Over SPAN_PROFILED frames
+    profiled as the benchmark's traced runs profile (CUDA activity alone,
+    the tracer opening no ranges): device ops by the innermost span open at
+    their launch, the card's idle share inside each span, and where the
+    profile's clock starts against the host clock read after it opens.
+    Over 2 frames more with CPU activity and ranges too: the spans'
+    profiler ranges against the tracer's clock.  The profiles are read
+    after the run."""
+    import json
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from slambench import harness
+    from slambench.manifest import Cell
+
+    root = Path(os.path.dirname(os.path.abspath(__file__)))
+    for name in cells:
+        warm = Cell(root, name).traffic["warmup_frames"]
+        stretches = ((SPAN_SKIP, SPAN_PROFILED, [ProfilerActivity.CUDA]),
+                     (SPAN_SKIP + SPAN_PROFILED, 2,
+                      [ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+        st = {"n": 0, "wall": {}, "profs": []}
+
+        def hook(process):
+            system = st["system"] = process.__self__
+
+            def wrapped(scan, image):
+                i = st["n"] - warm
+                st["n"] += 1
+                tr = system.tracer
+                if i == 0:
+                    system.trace = True
+                for first, n, acts in stretches:
+                    if i == first:
+                        torch.cuda.synchronize()
+                        tr.ranges = ProfilerActivity.CPU in acts
+                        prof = profile(activities=acts)
+                        prof.__enter__()
+                        st["profs"].append((prof, system.frame_idx, n, tr.now()))
+                t0 = time.perf_counter()
+                out = process(scan, image)
+                torch.cat([out["pose"].t, out["pose"].q]).cpu()
+                if i >= 0:
+                    st["wall"][system.frame_idx - 1] = time.perf_counter() - t0
+                for first, n, _ in stretches:
+                    if i == first + n - 1:
+                        torch.cuda.synchronize()
+                        st["profs"][-1][0].__exit__(None, None, None)
+                        st["closed"] = len(st["profs"])
+                        tr.ranges = False
+                return out
+            return wrapped
+
+        out = harness.run_cell(root, name, 20261018, SPAN_SECONDS, False,
+                               process_hook=hook)
+        if len(st["profs"]) > st.get("closed", 0):      # the window ended inside one
+            st["profs"].pop()[0].__exit__(None, None, None)
+        recs = list(st.pop("system").tracer.spans)
+        profiled = []
+        row = {"cell": name, "e2e": out["e2e"], "correct": out["result"]["correct"],
+               "device": None, "ranges": None}
+        for k, (prof, f0, n, t_prof) in enumerate(st["profs"]):
+            frames = set(range(f0, f0 + n))
+            profiled.append(frames)
+            mine = [r for r in recs if r.frame in frames]
+            if k == 0:
+                row["device"] = _span_device(prof, mine, n)
+                row["device"]["trace_start_minus_host_ms"] = (
+                    prof.profiler.kineto_results.trace_start_ns() - t_prof) / 1e6
+            else:
+                row["ranges"] = _range_offsets(prof, mine)
+        st["profs"] = None
+        plain = set(st["wall"]) - set().union(*profiled)
+        for key, frames in (("unprofiled", plain),
+                            ("profiled", profiled[0] if profiled else set())):
+            row[key] = _host_table(recs, frames)
+            row[key]["wall_ms"] = 1e3 * sum(st["wall"][f] for f in frames) / max(1, len(frames))
+        u = row["unprofiled"]
+        say("spans", cell=name, frames=u["frames"], frame_ms=f"{u['frame_ms']:.3f}",
+            wall_ms=f"{u['wall_ms']:.3f}", unspanned_ms=f"{u['unspanned_ms']:.3f}",
+            rest_ms=f"{u['rest_ms']:.6f}", read_ms=f"{u['host_ms'].get('read', 0.0):.3f}",
+            inside_frame_share=(row["device"] or {}).get("inside_frame_share"),
+            correct=row["correct"])
+        print(json.dumps(row), flush=True)
 
 
 def capture_loop(dev, path: str) -> None:
@@ -590,6 +786,8 @@ def main() -> None:
                     help="with --calib-seeds: where the hand-eye rings go (.npz)")
     ap.add_argument("--calib-capture", metavar="FILE",
                     help="only record calib-online's estimator inputs into FILE (.npz)")
+    ap.add_argument("--spans", metavar="CELL,CELL",
+                    help="only the span table of these slambench cells")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_perf: torch.cuda.is_available() is false")
@@ -607,6 +805,10 @@ def main() -> None:
         return
     if a.calib_capture:
         calib_capture(dev, a.calib_capture)
+        return
+    if a.spans:
+        torch.set_num_threads(1)        # as slambench/run.py runs
+        span_table(dev, a.spans.split(","))
         return
     if a.calib_seeds:
         calib_study(dev, [int(g) for g in a.calib_seeds.split(",")],

@@ -1384,7 +1384,7 @@ def system_phase(name: str, cfg, dev, seed: int, observe=None,
     make, traj = _chunk_maker(cfg.lidar, dev, seed, n_frames, camera=cfg.camera)
     n_chunks = n_frames // CHUNK
     torch.cuda.reset_peak_memory_stats()
-    system = SlamSystem(cfg, device=dev)
+    system = SlamSystem(cfg, device=dev, trace=True)
     loop_knn = 0
     keyframe_step = system.loop.process_keyframe
 
@@ -1441,7 +1441,7 @@ def system_phase(name: str, cfg, dev, seed: int, observe=None,
     n_outer = max(1, (cfg.lidar.scan_to_map_iters + 1) // 2)
     n_refine = max(1, (cfg.loop.refine_iters + 1) // 2)
     odometry_knn = knn_launches - loop_knn
-    timer = system.timer.summary()
+    timer = system.tracer.summary()
     say(name, frames=n_frames, note="bench.py's kitti-scale row runs 1000 frames; "
         "cut to 340 (a lap and the revisit) for time" if name == "system-kitti" else
         f"bench.py's system row, cut from {SYS_FRAMES} to {n_frames} frames (a lap "
@@ -1642,7 +1642,7 @@ def kitti_files_phase(dev, seed: int, chunked_fps=None) -> dict:
         ate = ate_rmse(tum, read_poses(os.path.join(root, "poses", "00.txt")))
         ply_bytes = os.path.getsize(ply)
         kfs = system.keyframes_processed
-        timer = system.timer.summary()
+        timer = system.tracer.summary()
         n_outer = max(1, (cfg.lidar.scan_to_map_iters + 1) // 2)
         n_refine = max(1, (cfg.loop.refine_iters + 1) // 2)
         odometry_knn = knn_launches - counts["knn"]
@@ -2340,7 +2340,7 @@ def _mesh_system_rank(rank: int, world: int, seed: int, n_frames: int) -> dict:
         laser_to_camera=tuple(T_CL.to_mat4().reshape(-1).tolist()),
         parallel=ParallelConfig(kf_shards=kf, map_shards=mp))
     make, _ = _chunk_maker(cfg.lidar, dev, seed, SYS_FRAMES, camera=cfg.camera)
-    system = SlamSystem(cfg, device=dev)
+    system = SlamSystem(cfg, device=dev, trace=True)
     loop_knn = 0
     keyframe_step = system.loop.process_keyframe
 
@@ -2379,7 +2379,7 @@ def _mesh_system_rank(rank: int, world: int, seed: int, n_frames: int) -> dict:
             "knn_shapes": [(cfg.lidar.max_edge_features, odo.edge_map.points.shape[0]),
                            (cfg.lidar.max_planar_features, odo.plane_map.points.shape[0])],
             "stats": system.mesh.collective_stats(), "chunk_s": chunk_s,
-            "stage_s": {k: v["total_s"] for k, v in system.timer.summary().items()},
+            "stage_s": {k: v["total_s"] for k, v in system.tracer.summary().items()},
             "n_outer": max(1, (cfg.lidar.scan_to_map_iters + 1) // 2),
             "n_refine": max(1, (cfg.loop.refine_iters + 1) // 2)}
 

@@ -72,6 +72,7 @@ from lmono_tpu_torch.utils.lie import (
     quat_normalize,
     quat_rotate,
 )
+from lmono_tpu_torch.utils.timing import read, span
 
 
 # Landmark-sharded window-solve crossover, measured by the JAX package on its
@@ -167,12 +168,13 @@ def _solve(w: WindowState, cfg: EstimatorConfig, axis=None):
     """Triangulate, solve, keep the laser-propagated window if the solve is
     not finite, reject outliers; returns (window, cost, SolveDiag)."""
     w = fm.triangulate(w, cfg)
-    if axis is None:
-        w2, diag = solve_window(w, cfg)
-    else:
-        # imported here: dist_window imports the estimator package
-        from lmono_tpu_torch.parallel.dist_window import _lm_loop
-        w2, diag = _lm_loop(w, cfg, axis)
+    with span("window_solve"):
+        if axis is None:
+            w2, diag = solve_window(w, cfg)
+        else:
+            # imported here: dist_window imports the estimator package
+            from lmono_tpu_torch.parallel.dist_window import _lm_loop
+            w2, diag = _lm_loop(w, cfg, axis)
     healthy = (torch.all(torch.isfinite(w2.t)) & torch.all(torch.isfinite(w2.q))
                & torch.isfinite(diag.cost1))
     w2 = outlier_rejection(tree_where(healthy, w2, w), cfg)
@@ -210,16 +212,17 @@ def fusion_step(state: EstimatorState, track: TrackOutput, laser: Pose,
     # ---- hand-eye extrinsic rotation (estimate_laser == 2)
     he = state.handeye
     if cfg.estimate_laser == 2:
-        # correspondences: features alive now and last frame
-        corr = ((track.ids[:, None] == state.prev_ids[None, :])
-                & track.alive[:, None] & state.prev_alive[None, :]
-                & (track.ids[:, None] >= 0))
-        prev_of = corr.to(track.norm.dtype) @ state.prev_norm
-        q_cam, rp_ok = relative_pose_from_tracks(
-            prev_of, track.norm, torch.any(corr, dim=1), gumbel)
-        q_las = quat_mul(quat_conj(state.prev_laser_q), laser.q)
-        pair_ok = rp_ok & ~he.converged & (count > 0)
-        he = handeye_update(he, q_cam, q_las, pair_ok)
+        with span("handeye"):
+            # correspondences: features alive now and last frame
+            corr = ((track.ids[:, None] == state.prev_ids[None, :])
+                    & track.alive[:, None] & state.prev_alive[None, :]
+                    & (track.ids[:, None] >= 0))
+            prev_of = corr.to(track.norm.dtype) @ state.prev_norm
+            q_cam, rp_ok = relative_pose_from_tracks(
+                prev_of, track.norm, torch.any(corr, dim=1), gumbel)
+            q_las = quat_mul(quat_conj(state.prev_laser_q), laser.q)
+            pair_ok = rp_ok & ~he.converged & (count > 0)
+            he = handeye_update(he, q_cam, q_las, pair_ok)
         # adopt the rotation estimate until converged+frozen
         adopt = he.converged & ~state.handeye.converged
         w = w._replace(ex_q=torch.where(adopt, he.q_ex, w.ex_q),
@@ -230,10 +233,10 @@ def fusion_step(state: EstimatorState, track: TrackOutput, laser: Pose,
     kf = ready = False
     if full:
         if cfg.estimate_laser == 2:
-            kf, ready = torch.stack(
-                [is_kf, w.initialized | he.converged]).tolist()
+            kf, ready = read(torch.Tensor.tolist, torch.stack(
+                [is_kf, w.initialized | he.converged]))
         else:
-            kf, ready = bool(is_kf), True
+            kf, ready = read(bool, is_kf), True
         readbacks += 1
 
     # below the crossover the rest of a full window's step runs on the
@@ -268,7 +271,8 @@ def fusion_step(state: EstimatorState, track: TrackOutput, laser: Pose,
     # ---- slide when full
     if full:
         if kf:
-            prior = marginalize_oldest(w, cfg, axis=win_axis)
+            with span("marginalization"):
+                prior = marginalize_oldest(w, cfg, axis=win_axis)
             w = fm.slide_old(w)._replace(prior=prior)
         else:
             w = fm.slide_new(w)

@@ -30,6 +30,7 @@ from lmono_tpu_torch.utils.lie import (
     quat_mul,
     so3_log_quat,
 )
+from lmono_tpu_torch.utils.timing import read
 
 RP_ITERS = 96                      # hypotheses of relative_pose_from_tracks
 RP_THRESH = (1.5 / 460.0) ** 2     # squared Sampson distance, normalized
@@ -38,7 +39,8 @@ _DEG = 180.0 / math.pi
 
 def decompose_essential(E: torch.Tensor):
     """E → (R1, R2, t) candidates (standard SVD factorization)."""
-    U, _, Vt = torch.linalg.svd(E)
+    # svd on CUDA checks its status on the host: a wait for the device
+    U, _, Vt = read(torch.linalg.svd, E)
     # enforce proper rotations
     U = U * torch.sign(torch.linalg.det(U))
     Vt = Vt * torch.sign(torch.linalg.det(Vt))
@@ -169,7 +171,7 @@ def handeye_update(st: HandEyeState, q_cam: torch.Tensor, q_las: torch.Tensor,
     w = huber * mask_b.to(torch.float32)
 
     A = (w[:, None, None] * (_quat_left(q_cam_b) - _quat_right(q_las_b)))
-    _, S, Vt = torch.linalg.svd(A.reshape(-1, 4), full_matrices=False)
+    _, S, Vt = read(torch.linalg.svd, A.reshape(-1, 4), False)
     q_ex = Vt[-1]
     q_ex = q_ex * torch.sign(q_ex[0] + 1e-12)
     q_ex = q_ex / torch.sqrt(torch.sum(q_ex * q_ex))

@@ -26,12 +26,13 @@ from lmono_tpu_torch.config import EstimatorConfig
 from lmono_tpu_torch.estimator import factors
 from lmono_tpu_torch.estimator.feature_manager import shift_left
 from lmono_tpu_torch.estimator.window import MargPrior, WindowState
+from lmono_tpu_torch.utils.timing import read
 
 
 def _eigh(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """`torch.linalg.eigh`, NaNs where it fails to converge (as JAX's)."""
     try:
-        return torch.linalg.eigh(S)
+        return read(torch.linalg.eigh, S)     # its status check waits
     except torch.linalg.LinAlgError:
         nan = torch.full_like(S, float("nan"))
         return nan[0], nan

@@ -25,6 +25,7 @@ import torch
 from lmono_tpu_torch.config import EstimatorConfig
 from lmono_tpu_torch.estimator import factors
 from lmono_tpu_torch.estimator.window import WindowState, tree_where
+from lmono_tpu_torch.utils.timing import read, span
 
 
 class SolveDiag(NamedTuple):
@@ -53,7 +54,8 @@ def _lm_step(state: WindowState, lam: torch.Tensor, cfg: EstimatorConfig):
 
     zero = torch.zeros(D, dtype=state.t.dtype, device=state.t.device)
     r = resid_fn(zero)
-    J = factors.jacobian(resid_fn, (state, rw), zero)    # (R, D)
+    with span("window_solve.jacobian"):
+        J = factors.jacobian(resid_fn, (state, rw), zero)    # (R, D)
     H = J.T @ J
     g = J.T @ r
     Hd = H + torch.diag(lam * (1.0 + torch.diagonal(H)))
@@ -107,7 +109,7 @@ def solve_window(state: WindowState, cfg: EstimatorConfig
         it += 1
         if it < cfg.gn_iters:
             readbacks += 1
-            if bool(done):
+            if read(bool, done):
                 break
     return st, SolveDiag(cost0=cost_first, cost1=cost, iters=it,
                          readbacks=readbacks)

@@ -27,6 +27,7 @@ from lmono_tpu_torch.ops.image import build_pyramid, scharr_gradients
 from lmono_tpu_torch.ops.lk import track_fb
 from lmono_tpu_torch.ops.ransac import (gumbel_noise, masked_categorical,
                                         ransac_fundamental)
+from lmono_tpu_torch.utils.timing import span
 
 
 class TrackerState(NamedTuple):
@@ -96,8 +97,9 @@ def tracker_step(state: TrackerState, image: torch.Tensor, cam: CameraModel,
     # threshold: f_threshold px at the camera's focal length (a host float)
     f_px = float(cam.params.get("fx", cam.params.get("gamma1", 460.0)))
     thr = (cfg.f_threshold / f_px) ** 2
-    inl, _ = ransac_fundamental(state.norm, norm1, ok,
-                                masked_categorical(ok, gumbel), thresh=thr)
+    with span("tracker.ransac"):
+        inl, _ = ransac_fundamental(state.norm, norm1, ok,
+                                    masked_categorical(ok, gumbel), thresh=thr)
     ok = ok & inl
     ids = torch.where(ok, state.ids, -1)
     cnt = torch.where(ok, state.track_cnt + 1, 0)

@@ -41,6 +41,7 @@ from lmono_tpu_torch.mapping.depth import (backproject_colored, complete_depth,
 from lmono_tpu_torch.ops.ransac import gumbel_noise
 from lmono_tpu_torch.parallel.mesh import all_gather_rows
 from lmono_tpu_torch.utils.lie import Pose
+from lmono_tpu_torch.utils.timing import span
 
 _SCAN = ("points", "ranges", "valid")
 
@@ -84,10 +85,12 @@ def fused_step(state: FusedState, frame: dict, cam: CameraModel,
     odo_axis = est_axis = None
     if mesh is not None:
         odo_axis, est_axis = mesh.axis("map"), mesh.axis("kf")
-    odo, lo = odometry_step(state.odo, {k: frame[k] for k in _SCAN},
-                            cfg.lidar, n, axis=odo_axis)
-    trk, track = tracker_step(state.trk, frame["image"], cam, cfg.tracker,
-                              gumbel, n)
+    with span("odometry"):
+        odo, lo = odometry_step(state.odo, {k: frame[k] for k in _SCAN},
+                                cfg.lidar, n, axis=odo_axis)
+    with span("tracker"):
+        trk, track = tracker_step(state.trk, frame["image"], cam, cfg.tracker,
+                                  gumbel, n)
     est, out = fusion_step(state.est, track, lo["pose"], cfg.estimator,
                            min(n, cfg.estimator.window_size), rp_gumbel,
                            axis=est_axis)
@@ -182,11 +185,12 @@ def system_chunk(state: FusedState, cmap, frames: dict, corr: Pose,
                                          mcfg.depth_min, mcfg.depth_max)
             depth_f, fmask = complete_depth(depth, dmask, mcfg)
         if enable_map:
-            pts_c, colors, ok = backproject_colored(depth_f, fmask, frame["image"],
-                                                    cam, mcfg)
-            keep = ok & (pts_c[:, 1] > -mcfg.crop_height) & res["initialized"]
-            cmap = colormap_update_hash(cmap, corr_cam.apply(pts_c), colors, keep,
-                                        mcfg.map_voxel, axis=map_axis)
+            with span("map"):
+                pts_c, colors, ok = backproject_colored(depth_f, fmask, frame["image"],
+                                                        cam, mcfg)
+                keep = ok & (pts_c[:, 1] > -mcfg.crop_height) & res["initialized"]
+                cmap = colormap_update_hash(cmap, corr_cam.apply(pts_c), colors, keep,
+                                            mcfg.map_voxel, axis=map_axis)
         if enable_loop:
             lm = window_landmarks(w, cam, mcfg, Kw, depth=depth_f, depth_mask=fmask)
             res.update(lm_pts=corr.apply(lm.pts_w), lm_norm=lm.norm, lm_uv=lm.uv,

@@ -27,6 +27,7 @@ from lmono_tpu_torch.mapping.depth import (backproject_colored, complete_depth,
 from lmono_tpu_torch.ops.voxelmap import _hash_slots, _voxel_keys
 from lmono_tpu_torch.parallel.mesh import all_gather_rows
 from lmono_tpu_torch.utils.lie import Pose
+from lmono_tpu_torch.utils.timing import read
 
 
 class ColorMap(NamedTuple):
@@ -120,6 +121,14 @@ def build_frame(points_laser: torch.Tensor, points_valid: torch.Tensor,
     return T_WC.apply(pts_c), colors, keep, depth_f, fmask
 
 
+def _host_rows(cm: ColorMap):
+    """The bank's valid (points, colors) as host arrays, None if empty."""
+    idx = torch.nonzero(cm.mask).squeeze(1)
+    if not idx.numel():
+        return None
+    return cm.points[idx].cpu().numpy(), cm.colors[idx].cpu().numpy()
+
+
 class MapBuilder:
     """Host-side runner of the dense map on one device, the CUDA card
     unless another is named (`default_device`).
@@ -175,12 +184,10 @@ class MapBuilder:
         """Archive the active bank's valid rows to host memory and reset it.
         Reading the mask waits for every queued program, so this runs only
         when the bank is full."""
-        cm = self._global_map()
-        idx = torch.nonzero(cm.mask).squeeze(1)
-        if idx.numel():
-            self._archive.append((cm.points[idx].cpu().numpy(),
-                                  cm.colors[idx].cpu().numpy()))
-            self._archived_n += int(idx.numel())
+        rows = read(_host_rows, self._global_map())
+        if rows is not None:
+            self._archive.append(rows)
+            self._archived_n += rows[0].shape[0]
         self.map = ColorMap.empty(self.map.points.shape[0], self.device)
         self._occ = None   # a queued count refers to the drained bank
 
@@ -193,7 +200,7 @@ class MapBuilder:
         if self._occ is not None:
             host, event = self._occ
             if event is not None:
-                event.synchronize()
+                read(event.synchronize)
             if int(host) >= self.cfg.flush_frac * self.capacity:
                 self._flush_active()
         count = self._count()

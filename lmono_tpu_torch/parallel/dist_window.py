@@ -33,6 +33,7 @@ from lmono_tpu_torch.estimator.solver import SolveDiag, _apply_delta
 from lmono_tpu_torch.estimator.window import (FeatureTable, MargPrior,
                                               WindowState, tree_where)
 from lmono_tpu_torch.parallel.mesh import Mesh, gather_sharded, put_sharded
+from lmono_tpu_torch.utils.timing import read
 
 
 def window_specs(axis: str) -> WindowState:
@@ -143,7 +144,7 @@ def _lm_loop(st: WindowState, cfg: EstimatorConfig, axis
         it += 1
         if it < cfg.gn_iters:
             readbacks += 1
-            if bool(done):
+            if read(bool, done):
                 break
     return st, SolveDiag(cost0=cost_first, cost1=cost, iters=it,
                          readbacks=readbacks)

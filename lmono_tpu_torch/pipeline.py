@@ -60,7 +60,8 @@ from lmono_tpu_torch.utils.checkpoint import (CheckpointMismatch, load_extras,
                                               load_state, save_state)
 from lmono_tpu_torch.utils.lie import (Pose, mat_to_quat, pose_stack,
                                        quat_rotate_inv, ypr_to_mat)
-from lmono_tpu_torch.utils.timing import StageTimer
+from lmono_tpu_torch.utils import timing
+from lmono_tpu_torch.utils.timing import Tracer, read, span
 
 _SCAN = ("points", "ranges", "valid")
 
@@ -80,6 +81,10 @@ def drop_bad_loops(g: PoseGraph, gate_m: float) -> tuple[PoseGraph, torch.Tensor
     return g._replace(loop_mask=g.loop_mask & ~bad), torch.sum(bad)
 
 
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    return x.cpu().numpy()
+
+
 class SlamSystem:
     """End-to-end SLAM engine over (scan, image) frame streams."""
 
@@ -93,11 +98,14 @@ class SlamSystem:
 
     def __init__(self, cfg: SystemConfig, enable_loop: bool = True,
                  enable_mapping: bool = True, device=None,
-                 generator: torch.Generator | None = None, mesh=None):
+                 generator: torch.Generator | None = None, mesh=None,
+                 trace: bool = False):
         """generator: the front's noise source (seed 7 on `device` when none
         is given); the loop detector draws from its own.  mesh: the (kf,
         map) engine mesh when kf_shards × map_shards > 1 (default: one over
-        every rank of the process group)."""
+        every rank of the process group).  trace: `tracer` records every
+        frame's spans; without it a frame is traced only while a torch
+        profiler records (and untraced, `process` reads no clock)."""
         pc = cfg.parallel
         self.mesh = None
         if pc.kf_shards * pc.map_shards > 1:
@@ -152,7 +160,8 @@ class SlamSystem:
             MapBuilder(self.cam, cfg.mapping, device=self.device, mesh=self.mesh)
             if enable_mapping else None)
         self.correction = Pose.identity(device=self.device)
-        self.timer = StageTimer()
+        self.trace = trace
+        self.tracer = Tracer()
         self.n_loops = 0
         self.readbacks = 0          # device reads of the system's own lanes
         self.reaps = 0              # reaps that fetched pending detections
@@ -181,8 +190,9 @@ class SlamSystem:
         """One device→host read of several values (flattened to f32, whose
         integers are exact up to 2²⁴)."""
         self.readbacks += 1
-        return torch.cat([torch.as_tensor(v).reshape(-1).to(torch.float32)
-                          for v in values]).cpu().numpy()
+        flat = torch.cat([torch.as_tensor(v).reshape(-1).to(torch.float32)
+                          for v in values])
+        return read(_to_host, flat)
 
     # ------------------------------------------------------------------
     # push-based streams: scans and images paired by timestamp
@@ -204,15 +214,20 @@ class SlamSystem:
         """One frame: scan = {points, ranges, valid}; image (H, W) in [0,1].
         `loop` reports detections applied this frame (they run at the
         keyframe and are reaped on a later frame)."""
+        if not (self.trace or timing.profiling()):
+            return self._process(scan, image, time)
+        with timing.tracing(self.tracer, self.frame_idx, "frame"):
+            return self._process(scan, image, time)
+
+    def _process(self, scan: dict, image, time: Optional[float]) -> dict:
         idx = self.frame_idx
         time = idx * 0.1 if time is None else time
         applied = self._reap_loops()
         dev = self.device
         scan = {k: torch.as_tensor(scan[k], device=dev) for k in _SCAN}
         image = torch.as_tensor(image, device=dev)
-        with self.timer.stage("front"):
-            res = self.front.process({**scan, "image": image},
-                                     with_features=self.loop is not None)
+        res = self.front.process({**scan, "image": image},
+                                 with_features=self.loop is not None)
         fused = Pose(res["pose_t"], res["pose_q"])
         cam_pose = Pose(res["cam_t"], res["cam_q"])
         ex = Pose(res["ex_t"], res["ex_q"])
@@ -222,11 +237,11 @@ class SlamSystem:
         kf_flag, init_flag = bool(kf), bool(init)
 
         if self.loop is not None and kf_flag and init_flag:
-            with self.timer.stage("loop"):
+            with span("loop_lane"):
                 self._loop_lane(scan, image, cam_pose, ex, time, res["features"], idx,
                                 res.get("window_feats"))
         if self.mapper is not None and init_flag:
-            with self.timer.stage("map"):
+            with span("map"):
                 self.mapper.process(scan["points"].reshape(-1, 3),
                                     scan["valid"].reshape(-1), image, ex,
                                     self.correction.compose(cam_pose))
@@ -248,6 +263,12 @@ class SlamSystem:
         leading (F,) axis run through `fused.system_chunk`, then the loop
         lane on each processed keyframe.  Returns the per-frame outputs
         (leading (F,) axis) and `loops_applied`."""
+        if not (self.trace or timing.profiling()):
+            return self._process_chunk(frames, t0, dt)
+        with timing.tracing(self.tracer, self.frame_idx, "chunk"):
+            return self._process_chunk(frames, t0, dt)
+
+    def _process_chunk(self, frames: dict, t0: Optional[float], dt: float) -> dict:
         t0 = self.frame_idx * dt if t0 is None else t0
         applied = self._reap_loops()   # correction current before the chunk
         frames = {k: torch.as_tensor(v, device=self.device) for k, v in frames.items()}
@@ -257,27 +278,26 @@ class SlamSystem:
         draws = [self.front.noise() for _ in range(F)]
         g = torch.stack([d[0] for d in draws])
         rp = torch.stack([d[1] for d in draws]) if draws[0][1] is not None else None
-        with self.timer.stage("chunk"):
-            self.front.state, cmap2, outs = system_chunk(
-                self.front.state, cmap, frames, self.correction, self.cam,
-                self.cfg, self.mapper is not None, self.loop is not None, g,
-                self.frame_idx, rp, mesh=self.mesh)
+        self.front.state, cmap2, outs = system_chunk(
+            self.front.state, cmap, frames, self.correction, self.cam,
+            self.cfg, self.mapper is not None, self.loop is not None, g,
+            self.frame_idx, rp, mesh=self.mesh)
         fill = outs.pop("map_fill")
         if self.mapper is not None:
             self.mapper.absorb_chunk(cmap2, F)
         self._raw_poses += [Pose(outs["pose_t"][i], outs["pose_q"][i]) for i in range(F)]
         if self.loop is not None:
-            with self.timer.stage("loop"):
-                # one read covers the lane flags, the keyframe positions
-                # and the map's occupancy
-                host = self._read(outs["is_keyframe"], outs["initialized"],
-                                  outs["ccam_t"], fill)
-                kf, init = host[:F] > 0.5, host[F:2 * F] > 0.5
-                ccam_t = host[2 * F:5 * F].reshape(F, 3)
-                if self.mapper is not None:
-                    self.mapper.flush_if_full(int(host[-1]))
-                for i in range(F):
-                    if kf[i] and init[i]:
+            # one read covers the lane flags, the keyframe positions and the
+            # map's occupancy
+            host = self._read(outs["is_keyframe"], outs["initialized"],
+                              outs["ccam_t"], fill)
+            kf, init = host[:F] > 0.5, host[F:2 * F] > 0.5
+            ccam_t = host[2 * F:5 * F].reshape(F, 3)
+            if self.mapper is not None:
+                self.mapper.flush_if_full(int(host[-1]))
+            for i in range(F):
+                if kf[i] and init[i]:
+                    with span("loop_lane"):
                         self._loop_lane_chunk(outs, frames, i, t0 + i * dt,
                                               ccam_t[i], self.frame_idx + i)
         elif self.mapper is not None:
@@ -297,19 +317,22 @@ class SlamSystem:
         w = self.front.state.est.window
         if window_feats is not None:
             w = w._replace(feats=window_feats)
-        lm = window_landmarks(w, self.cam, cfg.mapping,
-                              cfg.loop.window_points, scan_points=scan["points"],
-                              scan_valid=scan["valid"])
-        corr_pose = self.correction.compose(cam_pose)
-        lidar = (*subsample_features(lidar_feats.edge_points, lidar_feats.edge_mask,
-                                     cfg.loop.kf_edge_points),
-                 *subsample_features(lidar_feats.planar_points, lidar_feats.planar_mask,
-                                     cfg.loop.kf_planar_points))
+        with span("loop_lane.landmarks"):
+            lm = window_landmarks(w, self.cam, cfg.mapping,
+                                  cfg.loop.window_points, scan_points=scan["points"],
+                                  scan_valid=scan["valid"])
+            corr_pose = self.correction.compose(cam_pose)
+            lidar = (*subsample_features(lidar_feats.edge_points, lidar_feats.edge_mask,
+                                         cfg.loop.kf_edge_points),
+                     *subsample_features(lidar_feats.planar_points,
+                                         lidar_feats.planar_mask,
+                                         cfg.loop.kf_planar_points))
         pos = self._read(corr_pose.t)
-        res = self.loop.process_keyframe(
-            image, self.cam, lm.uv, lm.norm, self.correction.apply(lm.pts_w), lm.sel,
-            corr_pose, time, win_pnp_mask=lm.sel_pnp, lidar_features=lidar,
-            extrinsic=extrinsic, defer_note=True, pos=pos)
+        with span("loop_lane.detect"):
+            res = self.loop.process_keyframe(
+                image, self.cam, lm.uv, lm.norm, self.correction.apply(lm.pts_w),
+                lm.sel, corr_pose, time, win_pnp_mask=lm.sel_pnp, lidar_features=lidar,
+                extrinsic=extrinsic, defer_note=True, pos=pos)
         if res is not None:
             self._add_node(corr_pose, cam_pose, res, time, pos, frame_idx)
 
@@ -317,14 +340,15 @@ class SlamSystem:
                          frame_idx: int) -> None:
         """Keyframe lane fed by `system_chunk`'s outputs for frame i."""
         corr_pose = Pose(outs["ccam_t"][i], outs["ccam_q"][i])
-        res = self.loop.process_keyframe(
-            frames["image"][i], self.cam, outs["lm_uv"][i], outs["lm_norm"][i],
-            outs["lm_pts"][i], outs["lm_sel"][i], corr_pose, time,
-            win_pnp_mask=outs["lm_pnp"][i],
-            lidar_features=tuple(outs[k][i] for k in (
-                "loop_edge", "loop_edge_mask", "loop_planar", "loop_planar_mask")),
-            extrinsic=Pose(outs["ex_t"][i], outs["ex_q"][i]),
-            defer_note=True, pos=pos)
+        with span("loop_lane.detect"):
+            res = self.loop.process_keyframe(
+                frames["image"][i], self.cam, outs["lm_uv"][i], outs["lm_norm"][i],
+                outs["lm_pts"][i], outs["lm_sel"][i], corr_pose, time,
+                win_pnp_mask=outs["lm_pnp"][i],
+                lidar_features=tuple(outs[k][i] for k in (
+                    "loop_edge", "loop_edge_mask", "loop_planar", "loop_planar_mask")),
+                extrinsic=Pose(outs["ex_t"][i], outs["ex_q"][i]),
+                defer_note=True, pos=pos)
         if res is not None:
             self._add_node(corr_pose, Pose(outs["cam_t"][i], outs["cam_q"][i]),
                            res, time, pos, frame_idx)
@@ -361,58 +385,60 @@ class SlamSystem:
         node.  Returns the number of loops applied."""
         if not self._pending:
             return 0
-        self.reaps += 1
-        rows = self._read(*[torch.cat([p["res"].found.reshape(1).float(),
-                                       p["res"].old_seq.reshape(1).float(),
-                                       p["res"].rel_t, p["res"].rel_q,
-                                       p["res"].refined.reshape(1).float()])
-                            for p in self._pending]).reshape(len(self._pending), 10)
-        skip_t, skip_d = self.cfg.loop.skip_loop_time, self.cfg.loop.skip_loop_dis
-        applied = 0
-        for p, row in zip(self._pending, rows):
-            if row[0] < 0.5:
-                continue
-            pos = p["pos"]
-            if p["time"] - self.loop._last_loop_time < skip_t:
-                continue
-            if (self.loop._last_loop_pos is not None and skip_d > 0
-                    and np.linalg.norm(pos - self.loop._last_loop_pos) < skip_d):
-                continue
-            self.loop.note_loop(p["time"], pos)
-            rel = Pose(torch.tensor(row[2:5], device=self.device),
-                       torch.tensor(row[5:9], device=self.device))
-            graph_add_loop(self.graph, int(row[1]), p["node_idx"], rel, self.n_loops,
-                           weight=self.LOOP_W_REFINED if row[9] > 0.5 else self.LOOP_W_PNP)
-            self.n_loops += 1
-            applied += 1
-        self._pending = []
-        if applied:
-            with self.timer.stage("reap_opt"):
+        with span("reap"):
+            self.reaps += 1
+            with span("reap.read"):
+                rows = self._read(*[torch.cat([p["res"].found.reshape(1).float(),
+                                               p["res"].old_seq.reshape(1).float(),
+                                               p["res"].rel_t, p["res"].rel_q,
+                                               p["res"].refined.reshape(1).float()])
+                                    for p in self._pending]).reshape(len(self._pending), 10)
+            skip_t, skip_d = self.cfg.loop.skip_loop_time, self.cfg.loop.skip_loop_dis
+            applied = 0
+            for p, row in zip(self._pending, rows):
+                if row[0] < 0.5:
+                    continue
+                pos = p["pos"]
+                if p["time"] - self.loop._last_loop_time < skip_t:
+                    continue
+                if (self.loop._last_loop_pos is not None and skip_d > 0
+                        and np.linalg.norm(pos - self.loop._last_loop_pos) < skip_d):
+                    continue
+                self.loop.note_loop(p["time"], pos)
+                rel = Pose(torch.tensor(row[2:5], device=self.device),
+                           torch.tensor(row[5:9], device=self.device))
+                graph_add_loop(self.graph, int(row[1]), p["node_idx"], rel, self.n_loops,
+                               weight=self.LOOP_W_REFINED if row[9] > 0.5 else self.LOOP_W_PNP)
+                self.n_loops += 1
+                applied += 1
+            self._pending = []
+            if applied:
                 self.graph = self._optimize(self.graph)
                 # a loop edge the optimum still contradicts by > 0.5 m is a
                 # verification false-accept: it stops pulling
                 self.graph, n_bad = drop_bad_loops(self.graph, self.DROP_BAD_GATE_M)
                 if self._read(n_bad)[0] > 0:
                     self.graph = self._optimize(self.graph)
-            last = self._n_nodes - 1
-            opt = Pose(self.graph.t[last], mat_to_quat(ypr_to_mat(self.graph.ypr[last])))
-            # correction = optimized world from the raw estimator world at
-            # the newest node
-            self.correction = opt.compose(self._node_raw_cam[last].inverse())
-        return applied
+                last = self._n_nodes - 1
+                opt = Pose(self.graph.t[last], mat_to_quat(ypr_to_mat(self.graph.ypr[last])))
+                # correction = optimized world from the raw estimator world at
+                # the newest node
+                self.correction = opt.compose(self._node_raw_cam[last].inverse())
+            return applied
 
     def _optimize(self, g: PoseGraph) -> PoseGraph:
         """On a mesh, graphs of DIST_POSEGRAPH_CROSSOVER nodes and more run
         the kf-sharded optimizer (sharded for the solve, gathered back);
         smaller ones the single-device optimizer on every rank alike."""
         self.graph_solves += 1
-        if self._opt_sharded is not None and g.t.shape[0] >= DIST_POSEGRAPH_CROSSOVER:
-            from lmono_tpu_torch.parallel.dist_posegraph import (graph_gathered,
-                                                                 graph_shardings)
-            return graph_gathered(self.mesh, self._opt_sharded(
-                graph_shardings(self.mesh, g)))
-        return optimize_posegraph(g, iters=self.cfg.loop.posegraph_iters,
-                                  four_dof=self.cfg.loop.posegraph_4dof)
+        with span("pose_graph.solve"):
+            if self._opt_sharded is not None and g.t.shape[0] >= DIST_POSEGRAPH_CROSSOVER:
+                from lmono_tpu_torch.parallel.dist_posegraph import (graph_gathered,
+                                                                     graph_shardings)
+                return graph_gathered(self.mesh, self._opt_sharded(
+                    graph_shardings(self.mesh, g)))
+            return optimize_posegraph(g, iters=self.cfg.loop.posegraph_iters,
+                                      four_dof=self.cfg.loop.posegraph_4dof)
 
     # ------------------------------------------------------------------
     def final_trajectory(self) -> Pose:

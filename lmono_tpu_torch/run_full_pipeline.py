@@ -60,7 +60,8 @@ def run(n_frames: int, loop: bool = True, mapping: bool = True,
         T_CL.to_mat4().reshape(-1).cpu().tolist()))
     g = torch.Generator(device=dev).manual_seed(NOISE_SEED)
 
-    system = SlamSystem(cfg, enable_loop=loop, enable_mapping=mapping, device=dev)
+    system = SlamSystem(cfg, enable_loop=loop, enable_mapping=mapping, device=dev,
+                        trace=True)
     est, t_total, out = [], 0.0, None
     for i in range(n_frames):
         pose_wl = Pose(traj.t[i], traj.q[i])
@@ -95,8 +96,8 @@ def run(n_frames: int, loop: bool = True, mapping: bool = True,
     ex_t = out["extrinsic"].t.cpu().numpy()
     print(f"extrinsic estimate t: {np.round(ex_t, 4)} "
           f"(true {np.round(T_CL.t.cpu().numpy(), 4)})")
-    for k, v in system.timer.summary().items():
-        print(f"  stage {k:6s}: median {v['median_ms']:8.2f} ms  "
+    for k, v in system.tracer.summary().items():
+        print(f"  span {k:22s}: median {v['median_ms']:8.2f} ms  "
               f"mean {v['mean_ms']:8.2f} ms × {v['count']}")
     res["tum"] = os.path.join(out_dir, "full_pipeline.txt")
     save_tum(res["tum"], est_traj)

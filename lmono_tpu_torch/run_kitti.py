@@ -73,7 +73,7 @@ def main(argv=None) -> dict:
 
     loader = NativeScanLoader(ds.velo_dir, n, cfg.lidar)
     system = SlamSystem(cfg, enable_loop=not args.no_loop,
-                        enable_mapping=not args.no_map, device=device)
+                        enable_mapping=not args.no_map, device=device, trace=True)
 
     est = []
     t_total = 0.0
@@ -115,8 +115,8 @@ def main(argv=None) -> dict:
     save_kitti_poses(
         os.path.join(args.out, f"kitti{args.seq:02d}_fused_kitti.txt"),
         est_traj)
-    for k, v in system.timer.summary().items():
-        print(f"  stage {k:6s}: median {v['median_ms']:8.2f} ms  "
+    for k, v in system.tracer.summary().items():
+        print(f"  span {k:22s}: median {v['median_ms']:8.2f} ms  "
               f"mean {v['mean_ms']:8.2f} ms × {v['count']}")
     if args.ply and not args.no_map:
         print(f"saved {system.save_map(args.ply)} points to {args.ply}")

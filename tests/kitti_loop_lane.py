@@ -45,7 +45,6 @@ from lmono_tpu_torch.io import synthetic as syn  # noqa: E402
 from lmono_tpu_torch.loop import posegraph as tp  # noqa: E402
 from lmono_tpu_torch.pipeline import SlamSystem  # noqa: E402
 from lmono_tpu_torch.utils.lie import Pose, pose_stack  # noqa: E402
-from lmono_tpu_torch.utils.timing import StageTimer  # noqa: E402
 
 FIXTURE = ROOT / "tests" / "data" / "kitti_loop_lane.npz"
 # the registrations the fixture keeps (by call, one call per processed
@@ -110,7 +109,6 @@ def replay(d: dict, solve, on_solve=None) -> SlamSystem:
     s._graph_cap = min(512, cfg.loop.db_capacity)
     s.graph = tp.PoseGraph.empty(s._graph_cap)
     s.correction = Pose.identity()
-    s.timer = StageTimer()
     s.n_loops = s.readbacks = s.reaps = s.graph_solves = s.keyframes_processed = 0
     s._raw_poses = [Pose(torch.from_numpy(t), torch.from_numpy(q))
                     for t, q in zip(d["raw_pose_t"], d["raw_pose_q"])]

@@ -73,7 +73,7 @@ def test_port_imports_no_jax():
         "lmono_tpu_torch.io.sync", "lmono_tpu_torch.utils.timing",
         "lmono_tpu_torch.io", "lmono_tpu_torch.io.png", "lmono_tpu_torch.io.kitti",
         "lmono_tpu_torch.io.replay", "lmono_tpu_torch.native", "lmono_tpu_torch.eval",
-        "lmono_tpu_torch.utils", "lmono_tpu_torch.utils.metrics",
+        "lmono_tpu_torch.utils",
         "lmono_tpu_torch.utils.checkpoint", "lmono_tpu_torch.run_kitti",
         "lmono_tpu_torch.camera.models", "lmono_tpu_torch.camera.factory",
         "lmono_tpu_torch.camera.calibration", "lmono_tpu_torch.eval_sweep",

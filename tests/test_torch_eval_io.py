@@ -1,18 +1,14 @@
-"""The port's trajectory files, RPE, the remaining Lie helpers, the metrics
-logger and the input log, against the JAX package's.
+"""The port's trajectory files, RPE, the remaining Lie helpers and the
+input log, against the JAX package's.
 
 * `rpe` within 1e-5 of `lmono_tpu.eval.ate.rpe`.
 * `save_tum` / `save_kitti_poses` write the same bytes as the reference's
   writers on the same poses; `load_tum` / `load_kitti_poses` read them back
   as the reference's loaders do (within 1e-6).
 * `so3_exp_mat`, `so3_log_mat` and `pose_slerp` within 1e-6.
-* `MetricsLogger`'s records (the clock `t` aside), JSONL file and summary
-  equal the reference's.
 * `InputLog` round-trips bitwise, and a log written by either package loads
   in the other.
 """
-
-import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,12 +19,10 @@ from lmono_tpu.eval import ate as jate
 from lmono_tpu.eval import kitti_metrics as jkm
 from lmono_tpu.io.replay import InputLog as JInputLog
 from lmono_tpu.utils import lie as jl
-from lmono_tpu.utils.metrics import MetricsLogger as JMetricsLogger
 from lmono_tpu_torch.eval import (load_kitti_poses, load_tum, rpe,
                                   save_kitti_poses, save_tum)
 from lmono_tpu_torch.io import InputLog
 from lmono_tpu_torch.utils import lie as tl
-from lmono_tpu_torch.utils.metrics import MetricsLogger
 
 
 def _poses(n: int, seed: int, noise: float = 0.0, base=None):
@@ -106,28 +100,6 @@ def test_lie_leftovers_match_reference():
     one = tl.pose_slerp(tl.Pose(b0.t[0], b0.q[0]), tl.Pose(b1.t[0], b1.q[0]), 0.5)
     ref = jl.pose_slerp(jl.Pose(a0.t[0], a0.q[0]), jl.Pose(a1.t[0], a1.q[0]), 0.5)
     np.testing.assert_allclose(one.q.numpy(), np.asarray(ref.q), atol=1e-6)
-
-
-def test_metrics_logger_matches_reference(tmp_path):
-    rows = [dict(frame=i, ate=0.1 * i, ok=i % 2 == 0, tag=f"f{i}", fps=1.5 + i)
-            for i in range(6)] + [dict(frame=6, loops=3)]
-    jlog = JMetricsLogger(str(tmp_path / "j.jsonl"))
-    tlog = MetricsLogger(str(tmp_path / "t.jsonl"))
-    for r in rows:
-        jlog.log(**r)
-        tlog.log(**r)
-    jlog.close()
-    tlog.close()
-
-    def strip(recs):
-        return [{k: v for k, v in r.items() if k != "t"} for r in recs]
-
-    assert strip(tlog.records) == strip(jlog.records)
-    lines = [strip([json.loads(x) for x in (tmp_path / n).read_text().splitlines()])
-             for n in ("j.jsonl", "t.jsonl")]
-    assert lines[0] == lines[1] == strip(tlog.records)
-    assert tlog.summary() == jlog.summary()
-    assert MetricsLogger().summary() == {"n_records": 0}
 
 
 def _frames(seed: int):

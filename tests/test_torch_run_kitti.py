@@ -10,7 +10,7 @@ banks, window 4, a 64-keyframe DB, a 2^15-point map).
 
 * `main([..., "--device", "cpu"])` writes the TUM (n × 8) and KITTI
   (n × 12) trajectories and a PLY over 1000 bytes, prints ATE, RPE and the
-  stage medians, runs the native loader, and its TUM trajectory is within
+  tracer's span medians, runs the native loader, and its TUM trajectory is within
   0.3 m ATE of the tree's poses (as `tests/test_run_kitti.py` holds the
   reference's `examples/run_kitti.py`).
 * The same loader frames fed to `SlamSystem.process` directly give the same
@@ -135,9 +135,9 @@ def test_run_kitti_prints_its_report(tmp_path, capsys):
                     "--no-loop", "--no-map", "--device", "cpu"])
     text = capsys.readouterr().out
     for line in ("KITTI seq 00: 3 frames", "throughput:", "ATE RMSE:", "RPE(10):",
-                 "stage front :"):
+                 "span frame ", "span odometry ", "span tracker "):
         assert line in text, line
-    assert "saved" not in text and "stage loop" not in text
+    assert "saved" not in text and "span loop_lane" not in text
 
 
 def test_run_kitti_equals_process_on_the_loader_frames(runs, tmp_path):
