@@ -6,6 +6,9 @@
     python3 chip_perf.py --calib-seeds 7,8,9,10 [--calib-fine-times 3,1000]
     python3 chip_perf.py --calib-capture FILE.npz
     python3 chip_perf.py --spans kitti00.lap1,kitti00.revisit
+    python3 chip_perf.py --graph
+    python3 chip_perf.py --posegraph
+    python3 chip_perf.py --attempts kitti00.lap1,kitti00.revisit [--root DIR] [--seed N]
 
 Times the port's two hand-written kernels through the entry points that its
 slices call, and takes `torch.profiler` windows of the KITTI-scale
@@ -49,6 +52,16 @@ owns) beside the frame's wall time, and over 12 profiled frames the device
 ops by the innermost span open at their launch and the card's idle share
 inside each span (`span_table`).
 
+`--graph` instead measures the window solve's CUDA graph at KITTI scale
+against the same solve issued eagerly (`graph_study`): equality, host ms a
+solve, the capture's time and memory, device ops and ms of a replay.
+
+`--posegraph` instead times the single-device pose-graph solve at each
+node capacity the system grows through, exact steps against the
+budgeted CG (`posegraph_study`).  `--attempts` instead runs benchmark
+cells on the checkout at `--root` and writes each frame's LM attempts and
+reads (`attempts_study`), for a frame-by-frame comparison of two checkouts.
+
 `--capture-loop` instead runs `chip_smoke.py`'s system-kitti cell alone
 and saves what its graph lane consumed, for a CPU replay against the JAX
 package (`tests/kitti_loop_lane.py`): every processed keyframe's frame,
@@ -72,6 +85,7 @@ Needs a CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import re
 import statistics
@@ -303,6 +317,29 @@ def _range_fields(prof, ranges, frames: int, prof_wall: float) -> dict:
     return fields
 
 
+def _kitti_chunks(cfg, dev, n: int) -> tuple[list, object]:
+    """The circuit's first n frames (a multiple of 10) at `cfg`'s widths,
+    simulated on the card (seed 600) in chunks of 10, and the rig's T_CL."""
+    from lmono_tpu_torch.io import synthetic as syn
+    from lmono_tpu_torch.utils.lie import Pose
+
+    scene = syn.make_city_scene(device=dev)
+    traj = syn.circuit_trajectory(120, device=dev)
+    T_CL = syn.synthetic_T_CL(device=dev)
+    g = torch.Generator(device=dev).manual_seed(600)
+    frames = []
+    for i in range(n):
+        pose = Pose(traj.t[i], traj.q[i])
+        fr = syn.simulate_lidar(scene, pose, cfg.lidar, 0.01, generator=g)
+        fr = {k: fr[k] for k in ("points", "ranges", "valid")}
+        fr["image"] = syn.render_camera(scene, pose.compose(T_CL.inverse()),
+                                        cfg.camera)
+        frames.append(fr)
+    chunks = [{k: torch.stack([f[k] for f in frames[c:c + 10]]) for k in frames[0]}
+              for c in range(0, n, 10)]
+    return chunks, T_CL
+
+
 def profile_pipeline(dev) -> None:
     """pipeline-kitti: `FusedPipeline.process_chunk` at kitti_scale_config,
     40 frames of warm-up, 10 timed, 10 profiled: device ms and busy share
@@ -315,24 +352,9 @@ def profile_pipeline(dev) -> None:
     from lmono_tpu_torch.camera import camera_from_config
     from lmono_tpu_torch.config import kitti_scale_config
     from lmono_tpu_torch.fused import FusedPipeline
-    from lmono_tpu_torch.io import synthetic as syn
-    from lmono_tpu_torch.utils.lie import Pose
 
     cfg = kitti_scale_config()
-    scene = syn.make_city_scene(device=dev)
-    traj = syn.circuit_trajectory(120, device=dev)
-    T_CL = syn.synthetic_T_CL(device=dev)
-    g = torch.Generator(device=dev).manual_seed(600)
-    frames = []
-    for i in range(60):
-        pose = Pose(traj.t[i], traj.q[i])
-        fr = syn.simulate_lidar(scene, pose, cfg.lidar, 0.01, generator=g)
-        fr = {k: fr[k] for k in ("points", "ranges", "valid")}
-        fr["image"] = syn.render_camera(scene, pose.compose(T_CL.inverse()),
-                                        cfg.camera)
-        frames.append(fr)
-    chunks = [{k: torch.stack([f[k] for f in frames[c:c + 10]]) for k in frames[0]}
-              for c in range(0, 60, 10)]
+    chunks, T_CL = _kitti_chunks(cfg, dev, 60)
     fp = FusedPipeline(cfg, camera_from_config(cfg.camera), T_CL, device=dev)
     for c in chunks[:4]:
         fp.process_chunk(c)
@@ -354,6 +376,218 @@ def profile_pipeline(dev) -> None:
         lm_attempts_per_frame=f"{float(out['lm_attempts'].float().mean()):.2f}",
         readbacks_per_frame=f"{float(out['readbacks'].float().mean()):.2f}",
         **fields)
+
+
+def graph_study(dev) -> None:
+    """The window solve's CUDA graph at KITTI scale.  `FusedPipeline` at
+    kitti_scale_config over the circuit's first 40 frames (the window fills
+    at frame 10) records every window its solve was handed; then, on each,
+    the graphed solve against the eager one (`chip_smoke.graph_against_eager`):
+    attempts and reads equal, costs equal, the largest state difference and
+    whether the state is bitwise the eager one, and host ms per solve of
+    each.  Then the attempt captured anew on the
+    last window: capture seconds (warm-up included), the memory the capture
+    reserved and its peak, device ops a replay (a CUDA-only profiler over
+    one replay) against an eager attempt's, the device ms of their kernels
+    and the wall ms of each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from lmono_tpu_torch.camera import camera_from_config
+    from lmono_tpu_torch.config import kitti_scale_config
+    from lmono_tpu_torch.estimator import estimator as est_mod
+    from lmono_tpu_torch.estimator import solver
+    from lmono_tpu_torch.fused import FusedPipeline
+
+    cfg = kitti_scale_config()
+    ecfg = cfg.estimator
+    chunks, T_CL = _kitti_chunks(cfg, dev, 40)
+    inputs, solve = [], est_mod.solve_window
+
+    def recorded(state, c):
+        inputs.append(state)
+        return solve(state, c)
+
+    est_mod.solve_window = recorded
+    try:
+        fp = FusedPipeline(cfg, camera_from_config(cfg.camera), T_CL, device=dev)
+        for c in chunks:
+            fp.process_chunk(c)
+    finally:
+        est_mod.solve_window = solve
+    rows = []
+    for st in inputs:
+        both = chip_smoke.graph_against_eager(st, ecfg)
+        (_, g), (_, e) = both["graphed"], both["eager"]
+        rows.append({"attempts": (g.iters, e.iters), "reads": (g.readbacks, e.readbacks),
+                     "replayed": g.replayed, **{k: both[k] for k in (
+                         "costs_equal", "max_diff", "bitwise", "eager_ms", "graphed_ms")}})
+    n_att = sum(r["attempts"][0] for r in rows)
+    say("graph-solves", solves=len(rows), attempts=n_att,
+        attempts_equal=all(a == b for r in rows for a, b in [r["attempts"]]),
+        reads_equal=all(a == b for r in rows for a, b in [r["reads"]]),
+        replayed=sum(r["replayed"] for r in rows),
+        costs_equal=sum(r["costs_equal"] for r in rows),
+        bitwise_solves=sum(r["bitwise"] for r in rows),
+        max_abs_diff=f"{max(r['max_diff'] for r in rows):.3e}",
+        eager_ms_per_solve=f"{statistics.median(r['eager_ms'] for r in rows):.3f}",
+        graphed_ms_per_solve=f"{statistics.median(r['graphed_ms'] for r in rows):.3f}",
+        eager_ms_per_attempt=f"{sum(r['eager_ms'] for r in rows) / n_att:.3f}",
+        graphed_ms_per_attempt=f"{sum(r['graphed_ms'] for r in rows) / n_att:.3f}")
+
+    st = inputs[-1]
+    solver._GRAPHS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    graph = solver._AttemptGraph(st, ecfg)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    held, reserved = torch.cuda.memory_allocated() - m0, torch.cuda.memory_reserved() - r0
+    peak = torch.cuda.max_memory_allocated() - m0
+    graph.solve(st, ecfg)
+    lam = torch.tensor(ecfg.lm_lambda_init, device=dev)
+    solver._attempt(st, lam, ecfg)
+    torch.cuda.synchronize()
+
+    def measured(fn) -> tuple[int, float, float]:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = _device_events(prof)
+        return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3, wall
+
+    r_ops, r_dev, r_wall = measured(graph.graph.replay)
+    e_ops, e_dev, e_wall = measured(lambda: solver._attempt(st, lam, ecfg))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(CALLS):
+        graph.graph.replay()
+    end.record()
+    host_us = (time.perf_counter() - t0) * 1e6 / CALLS
+    end.synchronize()
+    say("graph-capture", slots=ecfg.max_tracks, window=ecfg.window_size + 1,
+        capture_s=f"{capture_s:.3f}", held_bytes=held, reserved_bytes=reserved,
+        peak_bytes=peak, replay_device_ops=r_ops, eager_attempt_device_ops=e_ops,
+        replay_kernel_ms=f"{r_dev:.3f}", eager_attempt_kernel_ms=f"{e_dev:.3f}",
+        replay_wall_ms=f"{r_wall:.3f}", eager_attempt_wall_ms=f"{e_wall:.3f}",
+        replay_event_ms=f"{start.elapsed_time(end) / CALLS:.3f}",
+        replay_host_us=f"{host_us:.1f}")
+
+
+def _study_graph(cap: int, seed: int):
+    """A pose graph of `cap` live nodes on the CPU: a circuit of a lap and
+    5% more (about 1 m between keyframes) with random-walk drift in the
+    positions and the yaw, and loop edges from the truth between the
+    nodes a lap apart (every other one, up to the 256 slots), one of them
+    metres off."""
+    from lmono_tpu_torch.loop import posegraph as tp
+    from lmono_tpu_torch.utils import lie
+
+    g = torch.Generator().manual_seed(seed)
+    th = torch.linspace(0.0, 2 * math.pi * 1.05, cap)
+    radius = cap / (2 * math.pi)
+    gt = torch.stack([radius * torch.cos(th), radius * torch.sin(th),
+                      0.1 * torch.sin(3 * th)], -1)
+    ypr = torch.stack([th + math.pi / 2, torch.full_like(th, 0.01),
+                       torch.full_like(th, 0.02)], -1)
+    q_gt = lie.mat_to_quat(lie.ypr_to_mat(ypr))
+    t = gt + torch.cumsum(0.01 * torch.randn(cap, 3, generator=g), 0)
+    drift = ypr.clone()
+    drift[:, 0] += torch.cumsum(5e-4 * torch.randn(cap, generator=g), 0)
+    q = lie.mat_to_quat(lie.ypr_to_mat(drift))
+    G = tp.PoseGraph.empty(cap)
+    for i in range(cap):
+        tp.graph_add_node(G, lie.Pose(t[i], q[i]), i)
+    lap = int(round((cap - 1) / 1.05))
+    pairs = [(i, i + lap) for i in range(0, cap - lap, 2)][:256]
+    for k, (i, j) in enumerate(pairs):
+        rel = lie.Pose(gt[i], q_gt[i]).inverse().compose(lie.Pose(gt[j], q_gt[j]))
+        if k == len(pairs) // 2:
+            rel = lie.Pose(rel.t + torch.tensor([8.0, -6.0, 1.0]), rel.q)
+        tp.graph_add_loop(G, i, j, rel, k)
+    return G, len(pairs)
+
+
+def posegraph_study(dev) -> None:
+    """The single-device pose-graph solve at each node capacity the system
+    grows through (512 → 4096), every node live (`_study_graph`): ms a
+    solve (host clock to a synchronize, after one warm-up solve) and the
+    peak device memory above the graph's own, for `optimize_posegraph` at
+    the system's 20 GN steps with each step's normal equations solved
+    exactly (the default: dense J, one LU) and by the reference's 50 CG
+    steps, in 4-DoF and 6-DoF; and how far the two results' positions
+    lie apart."""
+    from lmono_tpu_torch.loop import posegraph as tp
+
+    for cap in POSEGRAPH_CAPS:
+        G, loops = _study_graph(cap, 31)
+        G = G._replace(**{k: v.to(dev) for k, v in G._asdict().items()})
+        for four_dof in (True, False):
+            outs = {}
+            for cg in (None, 50):
+                def solve():
+                    return tp.optimize_posegraph(G, iters=20, cg_iters=cg,
+                                                 four_dof=four_dof)
+                solve()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                m0 = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                outs[cg] = solve()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                say("posegraph", capacity=cap, loops=loops, four_dof=four_dof,
+                    step="exact" if cg is None else f"cg{cg}", solve_ms=f"{ms:.1f}",
+                    peak_bytes=torch.cuda.max_memory_allocated() - m0)
+            apart = (outs[None].t - outs[50].t).abs().max().item()
+            say("posegraph-apart", capacity=cap, four_dof=four_dof, max_m=f"{apart:.4g}")
+            outs = None
+        G = None
+        torch.cuda.empty_cache()
+
+
+def attempts_study(dev, root: str, cells: list, seed: int, out_dir: str) -> None:
+    """Each cell's benchmark run (`slambench.harness.run_cell`, 51 s,
+    untraced) on the checkout at `root`, recording every frame's LM
+    attempts and device reads (`fused_step`'s `lm_attempts` and
+    `readbacks`, warm-up frames included): prints the run's end-to-end
+    metrics and whether it was correct, and writes the per-frame lists to
+    `out_dir/<cell>.<seed>.json`, for a frame-by-frame comparison of two
+    checkouts on the same seed."""
+    import json
+    from pathlib import Path
+
+    from slambench import harness
+
+    os.makedirs(out_dir, exist_ok=True)
+    for name in cells:
+        rows = []
+
+        def hook(process):
+            front = process.__self__.front
+            inner = front.process
+
+            def recorded(*args, **kwargs):
+                out = inner(*args, **kwargs)
+                rows.append((int(out["lm_attempts"]), int(out["readbacks"])))
+                return out
+            front.process = recorded
+            return process
+
+        out = harness.run_cell(Path(root), name, seed, 51.0, False, process_hook=hook)
+        path = os.path.join(out_dir, f"{name}.{seed}.json")
+        with open(path, "w") as f:
+            json.dump({"cell": name, "seed": seed, "e2e": out["e2e"],
+                       "correct": out["result"]["correct"], "frames": rows}, f)
+        say("attempts", cell=name, seed=seed, frames=len(rows),
+            correct=out["result"]["correct"], path=path,
+            **{k: f"{v:.4f}" for k, v in out["e2e"].items()})
 
 
 def profile_system(dev) -> None:
@@ -533,6 +767,7 @@ def _host_table(recs: list, frames: set) -> dict:
 # `--spans`: each run's window (s), the unprofiled window frames before the
 # profiles, and the frames of the CUDA-only profile
 SPAN_SECONDS, SPAN_SKIP, SPAN_PROFILED = 100.0, 30, 12
+POSEGRAPH_CAPS = (512, 1024, 2048, 4096)
 
 
 def span_table(dev, cells: list) -> None:
@@ -788,6 +1023,15 @@ def main() -> None:
                     help="only record calib-online's estimator inputs into FILE (.npz)")
     ap.add_argument("--spans", metavar="CELL,CELL",
                     help="only the span table of these slambench cells")
+    ap.add_argument("--graph", action="store_true",
+                    help="only the window solve's CUDA graph against its eager loop")
+    ap.add_argument("--posegraph", action="store_true",
+                    help="only the pose-graph solve's time and memory by capacity")
+    ap.add_argument("--attempts", metavar="CELL,CELL",
+                    help="only these cells' runs on --root, each frame's attempts and reads")
+    ap.add_argument("--seed", type=int, default=20261018, help="with --attempts")
+    ap.add_argument("--attempts-out", metavar="DIR", default="attempts",
+                    help="with --attempts: where the per-frame lists go")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_perf: torch.cuda.is_available() is false")
@@ -809,6 +1053,17 @@ def main() -> None:
     if a.spans:
         torch.set_num_threads(1)        # as slambench/run.py runs
         span_table(dev, a.spans.split(","))
+        return
+    if a.graph:
+        graph_study(dev)
+        return
+    if a.posegraph:
+        posegraph_study(dev)
+        return
+    if a.attempts:
+        torch.set_num_threads(1)        # as slambench/run.py runs
+        attempts_study(dev, os.path.abspath(a.root), a.attempts.split(","), a.seed,
+                       a.attempts_out)
         return
     if a.calib_seeds:
         calib_study(dev, [int(g) for g in a.calib_seeds.split(",")],

@@ -78,7 +78,10 @@ checks every kernel on their paths against its plain PyTorch version
    truth; exactly 1 K2 launch per frame, 2 K1 launches per outer iteration
    per frame in the odometry and per outer refinement iteration per
    processed keyframe in the loop lane (counted around its keyframe step),
-   no plain call.
+   no plain call; every LM attempt a replay of the window solve's CUDA
+   graph (share ≥ 0.99), and the last window the solve was handed solved
+   again both graphed and eagerly (`solver._solve_eager`): equal attempts
+   and costs, the state within 1e-6.
 
 9. kitti-files: the recorded-drive path.  A KITTI odometry tree written from
    30 frames (60 until PR 10, for the script's time) simulated on the card at `kitti_scale_config()`'s widths
@@ -390,6 +393,33 @@ MESH_TIMEOUT_S = 420          # the spawned ranks' time limit, spawn to join
 
 def say(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
+
+
+def graph_against_eager(state, cfg) -> dict:
+    """One window solve of `state` both ways on the card: with every
+    attempt's kernels issued one by one (`solver._solve_eager`), then
+    graphed (`solver.solve_window`), each timed on the host clock to a
+    synchronize.  Returns both results ("eager", "graphed": (state, diag)),
+    the largest difference of the leaves an attempt moves (poses,
+    extrinsic, depths), whether they are bitwise equal, whether the costs
+    are, and both times in ms."""
+    from lmono_tpu_torch.estimator import solver
+
+    out = {}
+    for name, fn in (("eager", solver._solve_eager), ("graphed", solver.solve_window)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn(state, cfg)
+        torch.cuda.synchronize()
+        out[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+    (e_st, e), (g_st, g) = out["eager"], out["graphed"]
+    pairs = [(g_st.t, e_st.t), (g_st.q, e_st.q), (g_st.ex_t, e_st.ex_t),
+             (g_st.ex_q, e_st.ex_q), (g_st.feats.inv_depth, e_st.feats.inv_depth)]
+    out.update(max_diff=max((a - b).abs().max().item() for a, b in pairs),
+               bitwise=all(torch.equal(a, b) for a, b in pairs),
+               costs_equal=bool(torch.equal(g.cost0, e.cost0)
+                                and torch.equal(g.cost1, e.cost1)))
+    return out
 
 
 def device_phase() -> str:
@@ -1369,6 +1399,7 @@ def system_phase(name: str, cfg, dev, seed: int, observe=None,
     records its graph lane through it).  keep: a frame count (a multiple of
     CHUNK); the result's "keep" holds the system's state after that many
     frames (`_system_snapshot`), for system-mesh."""
+    from lmono_tpu_torch.estimator import estimator as est_mod
     from lmono_tpu_torch.eval.ate import ate_rmse
     from lmono_tpu_torch.eval.kitti_metrics import kitti_odometry_errors
     from lmono_tpu_torch.io.synthetic import synthetic_T_CL
@@ -1396,27 +1427,39 @@ def system_phase(name: str, cfg, dev, seed: int, observe=None,
         return out
 
     system.loop.process_keyframe = counted_keyframe_step
+    solve_window, handed = est_mod.solve_window, []
+
+    def recorded_solve(state, c):
+        handed[:] = [state, c]
+        return solve_window(state, c)
+
+    est_mod.solve_window = recorded_solve
     if observe is not None:
         observe(system)
     knn_cuda_mod.knn_kernel_launches = lk_cuda_mod.lk_kernel_launches = 0
     knn_mod.knn_plain_calls = lk_mod.lk_plain_calls = 0
-    est_readbacks = 0
+    est_readbacks = attempts = replayed = 0
     t_proc = 0.0
     kept, chunk_s, snapshot = [], [], None
-    for c in range(n_chunks):
-        chunk = make(c * CHUNK)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = system.process_chunk(chunk, t0=c * CHUNK * 0.1)
-        torch.cuda.synchronize()
-        chunk_s.append(time.perf_counter() - t0)
-        if c >= WARMUP_CHUNKS:
-            t_proc += chunk_s[-1]
-        est_readbacks += int(outs["readbacks"].sum())
-        if (c + 1) * CHUNK <= keep:
-            kept.append(outs)
-            if (c + 1) * CHUNK == keep:
-                snapshot = _system_snapshot(system, kept, chunk_s)
+    try:
+        for c in range(n_chunks):
+            chunk = make(c * CHUNK)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = system.process_chunk(chunk, t0=c * CHUNK * 0.1)
+            torch.cuda.synchronize()
+            chunk_s.append(time.perf_counter() - t0)
+            if c >= WARMUP_CHUNKS:
+                t_proc += chunk_s[-1]
+            est_readbacks += int(outs["readbacks"].sum())
+            attempts += int(outs["lm_attempts"].sum())
+            replayed += int(outs["lm_replayed"].sum())
+            if (c + 1) * CHUNK <= keep:
+                kept.append(outs)
+                if (c + 1) * CHUNK == keep:
+                    snapshot = _system_snapshot(system, kept, chunk_s)
+    finally:
+        est_mod.solve_window = solve_window
     t0 = time.perf_counter()
     system._reap_loops()
     torch.cuda.synchronize()
@@ -1442,6 +1485,10 @@ def system_phase(name: str, cfg, dev, seed: int, observe=None,
     n_refine = max(1, (cfg.loop.refine_iters + 1) // 2)
     odometry_knn = knn_launches - loop_knn
     timer = system.tracer.summary()
+    replay_share = replayed / max(attempts, 1)
+    both = graph_against_eager(*handed)
+    (_, g), (_, e) = both["graphed"], both["eager"]
+    graph_diff, costs_equal = both["max_diff"], both["costs_equal"]
     say(name, frames=n_frames, note="bench.py's kitti-scale row runs 1000 frames; "
         "cut to 340 (a lap and the revisit) for time" if name == "system-kitti" else
         f"bench.py's system row, cut from {SYS_FRAMES} to {n_frames} frames (a lap "
@@ -1465,6 +1512,9 @@ def system_phase(name: str, cfg, dev, seed: int, observe=None,
         knn_per_frame=f"{knn_launches / n_frames:.3f}", lk_launches=lk_launches,
         lk_per_frame=f"{lk_launches / n_frames:.3f}",
         knn_plain_calls=plain[0], lk_plain_calls=plain[1], peak_mem_bytes=peak,
+        lm_attempts=attempts, lm_replayed=replayed, graph_replay_share=f"{replay_share:.4f}",
+        graph_vs_eager_attempts=f"{g.iters}/{e.iters}", graph_vs_eager_max_diff=f"{graph_diff:.3e}",
+        graph_vs_eager_bitwise=both["bitwise"], graph_vs_eager_costs_equal=costs_equal,
         stage_seconds=",".join(f"{k}:{v['total_s']:.2f}" for k, v in timer.items()))
     if not ate < SYS_ATE_GATE_M:
         raise AssertionError(f"{name}: ATE {ate} m fails the {SYS_ATE_GATE_M} m gate")
@@ -1486,6 +1536,13 @@ def system_phase(name: str, cfg, dev, seed: int, observe=None,
                              f"{kfs} processed keyframes, expected {2 * n_refine} each")
     if plain != (0, 0):
         raise AssertionError(f"{name}: {plain} plain KNN and LK calls on CUDA")
+    if not replay_share >= 0.99:
+        raise AssertionError(f"{name}: {replayed} of {attempts} LM attempts replayed "
+                             "the window solve's graph")
+    if not (g.iters == e.iters and costs_equal and graph_diff <= 1e-6):
+        raise AssertionError(f"{name}: the graphed solve parts from the eager one: "
+                             f"attempts {g.iters}/{e.iters}, costs equal {costs_equal}, "
+                             f"state {graph_diff:.3e} apart")
     return {"fps": fps, "ate": ate, "knn_launches": knn_launches,
             "lk_launches": lk_launches, "knn_per_frame": knn_launches / n_frames,
             "lk_per_frame": lk_launches / n_frames,

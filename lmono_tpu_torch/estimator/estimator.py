@@ -38,7 +38,8 @@ the reassociated prior moved the extrinsic and the dense colored map kept
 gives the single-device result.  Every branch the host takes follows
 from psum'd or replicated values, so the ranks stay in step.
 
-`FusionOutput` carries the host counts `lm_attempts` and `readbacks`.  The
+`FusionOutput` carries the host counts `lm_attempts`, `lm_replayed` (the
+attempts that replayed the solver's CUDA graph) and `readbacks`.  The
 hand-eye correspondence gather `corr @ prev_norm` stays the reference's
 one-hot matmul: exact with TF32 off, as the package sets it.
 """
@@ -114,6 +115,7 @@ class FusionOutput(NamedTuple):
     solve_cost: torch.Tensor
     keyframe_slot: int         # window slot of the newest frame
     lm_attempts: int           # LM attempts of this frame's solve (0: none)
+    lm_replayed: int           # of them, replays of a captured CUDA graph
     readbacks: int             # device values the host read this frame
     # the whole feature table after the slide, where the step gathered it
     # (a mesh below DIST_WINDOW_CROSSOVER, a full window), else None
@@ -247,11 +249,12 @@ def fusion_step(state: EstimatorState, track: TrackOutput, laser: Pose,
         w = w._replace(feats=all_gather_rows(axis, w.feats))
     win_axis = None if whole else axis
 
-    attempts = 0
+    attempts = replayed = 0
     cost = torch.zeros((), device=w.t.device)
     if ready:
         w, cost, diag = _solve(w, cfg, win_axis)
         attempts, readbacks = diag.iters, readbacks + diag.readbacks
+        replayed = diag.replayed
 
     out_pose = Pose(w.t[slot], w.q[slot])
     T_CL = Pose(w.ex_t, w.ex_q)
@@ -265,6 +268,7 @@ def fusion_step(state: EstimatorState, track: TrackOutput, laser: Pose,
         solve_cost=cost,
         keyframe_slot=slot,
         lm_attempts=attempts,
+        lm_replayed=replayed,
         readbacks=readbacks,
     )
 

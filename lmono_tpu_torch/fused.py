@@ -72,8 +72,9 @@ def fused_step(state: FusedState, frame: dict, cam: CameraModel,
     gumbel: the tracker's RANSAC noise (f_ransac_iters, 8, max_features);
     rp_gumbel: the relative-pose noise (96, 8, max_features), used when
     estimate_laser == 2.  n: the host frame number (the odometry's and
-    tracker's `frame`).  The result holds device tensors and two host
-    counts, `lm_attempts` and `readbacks`; with_features=True adds the
+    tracker's `frame`).  The result holds device tensors and three host
+    counts, `lm_attempts`, `lm_replayed` (of them, replays of the window
+    solve's CUDA graph) and `readbacks`; with_features=True adds the
     scan's edge/planar feature sets (`result["features"]`) for the loop
     lane's LiDAR refinement and, on a mesh, the whole window feature table
     (`result["window_feats"]`) for its landmarks.  `handeye_q` /
@@ -106,6 +107,7 @@ def fused_step(state: FusedState, frame: dict, cam: CameraModel,
         "handeye_q": est.handeye.q_ex,
         "handeye_converged": est.handeye.converged,
         "lm_attempts": out.lm_attempts,
+        "lm_replayed": out.lm_replayed,
         "readbacks": out.readbacks,
     }
     if with_features:

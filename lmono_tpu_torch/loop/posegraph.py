@@ -1,17 +1,28 @@
-"""Global pose-graph optimization (4-DoF or 6-DoF), matrix-free.
+"""Global pose-graph optimization (4-DoF or 6-DoF).
 
 Port of `lmono_tpu/loop/posegraph.py`: sequential odometry edges and loop
-edges over all keyframes, solved by Gauss-Newton with a matrix-free
-conjugate gradient.  The reference forms Hv = Jᵀ(Jv) with one `jvp` and one
-`vjp` through the whole residual function at every CG step.  Each edge's
-residual depends on its two nodes only, so here each GN step forms J as
-per-edge blocks (r × d for each end; `torch.func.jacfwd` vectorized over
-the edges by `vmap`) and each CG step applies J and Jᵀ from them: a few
-batched products, gathers and shifts over the edges.  Jᵀ sums the loop
-edges' blocks into their nodes by a one-hot (nodes × 2·loop slots) matmul
-instead of atomic adds, so a solve gives the same bits on every run; at
-4096 nodes and 256 loop slots that matrix is 8 MB, where a dense J would
-be 1.1 GB.
+edges over all keyframes, solved by Gauss-Newton.  Each edge's residual
+depends on its two nodes only, so each GN step forms J as per-edge blocks
+(r × d for each end; `torch.func.jacfwd` vectorized over the edges by
+`vmap`).  Jᵀ sums the loop edges' blocks into their nodes by a one-hot
+(nodes × 2·loop slots) matmul instead of atomic adds, so a solve gives the
+same bits on every run.
+
+The reference solves each step's normal equations by a matrix-free
+conjugate gradient of at most 50 steps (Hv = Jᵀ(Jv) by one `jvp` and one
+`vjp`), which leaves the step unconverged on graphs of a lap and more:
+there the robust loop weights of the next steps follow the inexact step
+into another basin, and a solve can end further from the optimum than it
+started (PERF.md §6).  By default the port solves each step exactly: J
+assembled dense from the blocks (each block written once into its place),
+JᵀJ by one matmul and one LU, a few dozen kernels a step where the CG
+took ~1000.  That is dense in the node capacity N, whatever the number of
+live nodes: J takes (rows × N·d) floats, JᵀJ (N·d)² and the LU
+O((N·d)³) flops a step (25 MB, 17 MB at the system's first capacity, 512
+nodes in 4-DoF; 1.1 GB each at 4096; PERF.md §7 has its times).  Given
+`cg_iters`, `optimize_posegraph` runs the reference's matrix-free CG
+instead (applying J and Jᵀ from the blocks), as the sharded optimizer
+(`parallel/dist_posegraph.py`) does.
 
 4-DoF mode optimizes (x, y, z, yaw) per keyframe, holding pitch and roll at
 their odometry values; 6-DoF mode optimizes full SE(3) (position plus a
@@ -268,6 +279,26 @@ class _Linearization(NamedTuple):
         out = out + self.onehot_T @ ends
         return torch.cat([out[:1] + 100.0 * u_fix, out[1:]])
 
+    def dense(self):
+        """J as one (rows, N·d) matrix, rows in the order (seq, loop, fix)
+        and columns node by node.  Every block is written once into its own
+        place (the chain's by index, edge k at nodes k and k+1; the loop
+        edges' by their one-hot incidence), so no two writes meet and every
+        run gives the same bits; the largest temporary is J itself."""
+        n, L = self.onehot_T.shape[0], self.loop_i.shape[0]
+        E, r, d = self.Ji_seq.shape
+        k = torch.arange(E, device=self.Ji_seq.device)
+        seq = self.Ji_seq.new_zeros(E, r, n, d)
+        seq[k, :, k] = self.Ji_seq
+        seq[k, :, k + 1] = self.Jj_seq
+        oi, oj = self.onehot_T[:, :L].T, self.onehot_T[:, L:].T
+        loop = (self.Ji_loop[:, :, None, :] * oi[:, None, :, None]
+                + self.Jj_loop[:, :, None, :] * oj[:, None, :, None])
+        fix = self.Ji_seq.new_zeros(d, n, d)
+        fix[:, 0] = 100.0 * torch.eye(d, dtype=fix.dtype, device=fix.device)
+        return torch.cat([seq.reshape(-1, n * d), loop.reshape(-1, n * d),
+                          fix.reshape(d, n * d)])
+
 
 def _bmv(A, v):
     return (A @ v[..., None])[..., 0]
@@ -309,23 +340,31 @@ def _linearize6(x, g, q0, w, onehot_T) -> _Linearization:
 
 def _gn_step(lin: _Linearization, x, node_mask, cg_iters):
     """One GN step from linearization `lin` at x: (masked dx, gradient
-    ∞-norm)."""
+    ∞-norm).  The damped normal equations (JᵀJ + 1e-4·I) dx = −Jᵀr are
+    solved exactly with cg_iters None (J dense, one LU), else by cg_iters
+    matrix-free CG steps."""
     grad = lin.JT(lin.residuals())
+    if cg_iters is None:
+        J = lin.dense()
+        H = J.T @ J + 1e-4 * torch.eye(J.shape[1], dtype=J.dtype, device=J.device)
+        dx = torch.linalg.solve_ex(H, -grad.reshape(-1))[0].reshape(grad.shape)
+    else:
+        def Hv(v):
+            return lin.JT(lin.J(v)) + 1e-4 * v                 # LM damping
 
-    def Hv(v):
-        return lin.JT(lin.J(v)) + 1e-4 * v                     # LM damping
-
-    dx = _cg(Hv, -grad, cg_iters)
+        dx = _cg(Hv, -grad, cg_iters)
     mask = node_mask[:, None]
     zero = torch.zeros_like(dx)
     return torch.where(mask, dx, zero), torch.amax(torch.abs(torch.where(mask, grad, zero)))
 
 
-def optimize_posegraph(g: PoseGraph, iters: int = 10, cg_iters: int = 50,
+def optimize_posegraph(g: PoseGraph, iters: int = 10, cg_iters: int | None = None,
                        four_dof: bool = True) -> PoseGraph:
-    """Damped GN over the graph, the normal equations solved by matrix-free
-    CG.  A GN iteration past the GNC window runs only while the previous
-    one's gradient ∞-norm exceeds _GN_GRAD_TOL (masked, see the module
+    """Damped GN over the graph.  Each step's normal equations are solved
+    exactly (`_gn_step`), or with `cg_iters` by that many matrix-free CG
+    steps, as the JAX package and the sharded optimizer solve them.  A GN
+    iteration past the GNC window runs only while the previous one's
+    gradient ∞-norm exceeds _GN_GRAD_TOL (masked, see the module
     docstring).  Returns a new graph with the optimized node poses."""
     onehot_T = _incidence(g)
     if not four_dof:
@@ -343,7 +382,7 @@ def optimize_posegraph(g: PoseGraph, iters: int = 10, cg_iters: int = 50,
     return g._replace(t=x[:, :3], ypr=new_ypr)
 
 
-def _optimize_posegraph6(g: PoseGraph, iters: int, cg_iters: int,
+def _optimize_posegraph6(g: PoseGraph, iters: int, cg_iters: int | None,
                          onehot_T) -> PoseGraph:
     """6-DoF variant over (N, 6) local coordinates; each GN iteration folds
     the rotation tangent into q0 (q0 ← q0·exp(δθ), δθ ← 0)."""

@@ -144,9 +144,11 @@ class SlamSystem:
             self.loop.db = put_db_sharded(self.mesh, self.loop.db)
             self.loop.detect_add = make_dist_process_fused(self.mesh, self.loop,
                                                            cfg.loop)
-        # the pose graph starts small and doubles on demand: its GN+CG costs
-        # O(capacity) per step whatever the number of live nodes; on a mesh
-        # every capacity is a multiple of kf_shards, so the nodes split
+        # the pose graph starts small and doubles on demand: a GN step costs
+        # O((capacity·d)³) on one device (dense J and LU), O(capacity) per CG
+        # step in the sharded optimizer, whatever the number of live nodes;
+        # on a mesh every capacity is a multiple of kf_shards, so the nodes
+        # split
         self._graph_cap = self._round_cap(min(512, cfg.loop.db_capacity))
         self.graph = (PoseGraph.empty(self._graph_cap, device=self.device)
                       if enable_loop else None)

@@ -137,8 +137,8 @@ def replay(d: dict, solve, on_solve=None) -> SlamSystem:
     return s
 
 
-def port_solve(g, iters, four_dof):
-    return tp.optimize_posegraph(g, iters=iters, four_dof=four_dof)
+def port_solve(g, iters, four_dof, cg_iters=None):
+    return tp.optimize_posegraph(g, iters=iters, cg_iters=cg_iters, four_dof=four_dof)
 
 
 def f64_solve(iters_cg=None):
@@ -153,9 +153,10 @@ def f64_solve(iters_cg=None):
     return solve
 
 
-def reference_solve():
+def reference_solve(cg_iters: int = 50):
     """The JAX package's `optimize_posegraph` (jitted, on the CPU) on the
-    port's graph."""
+    port's graph, each GN step's CG given `cg_iters` steps (the JAX
+    package's default 50)."""
     import jax
     import jax.numpy as jnp
 
@@ -167,7 +168,7 @@ def reference_solve():
         jg = jp.PoseGraph(**{f: jnp.asarray(getattr(g, f).numpy().astype(
             np.int32 if getattr(g, f).dtype in (torch.int64, torch.int32)
             else getattr(g, f).numpy().dtype)) for f in g._fields})
-        out = jax.device_get(opt(jg, iters=iters, four_dof=four_dof))
+        out = jax.device_get(opt(jg, iters=iters, cg_iters=cg_iters, four_dof=four_dof))
         return g._replace(t=torch.from_numpy(np.array(out.t)),
                           ypr=torch.from_numpy(np.array(out.ypr)))
     return solve

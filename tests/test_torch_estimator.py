@@ -118,6 +118,7 @@ def test_teacher_forced_steps_match(el):
         # one read for the slide (and readiness), one per LM attempt but the last
         want = 0 if not full else 1 + min(out.lm_attempts, cfg.gn_iters - 1)
         assert out.readbacks == want
+        assert out.lm_replayed == 0
         solved += out.lm_attempts > 0
     assert kinds == {True, False}, "both slide kinds"
     # estimate_laser 2 adopts the hand-eye rotation mid-run, then solves

@@ -189,6 +189,7 @@ def test_free_running_pipeline_ate_matches(jax_tpu_route):
     assert ate < 0.2
     assert fp.frame == N_FRAMES and bool(res[-1]["initialized"])
     assert sum(r["lm_attempts"] for r in res) >= N_FRAMES - TCFG.estimator.window_size
+    assert all(r["lm_replayed"] == 0 for r in res)         # the CPU's eager loop
 
 
 def test_process_matches_process_chunk():
@@ -213,6 +214,7 @@ def test_process_matches_process_chunk():
     assert chunk["pose_t"].shape == (n, 3) and chunk["lm_attempts"].shape == (n,)
     assert torch.equal(a.state.est.window.t, b.state.est.window.t)
     assert int(chunk["lm_attempts"].sum()) > 0          # the window solved
+    assert int(chunk["lm_replayed"].sum()) == 0          # eagerly, on the CPU
 
 
 def test_state_from_numpy_matches_init():

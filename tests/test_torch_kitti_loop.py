@@ -15,11 +15,18 @@ Tolerances:
   not a failure to converge.  On the closure whose PnP guess was 7 m off,
   it ends within 0.2 m of the truth from the truth: the guess started it
   in another basin.
-* The graph lane over the same detections with the port's solver: 30
-  closures, 2 switched off; each pose-graph solve within 1e-4 m plus twice
-  the reference's own spread (its result moved by a one-ulp change of its
-  input, up to 0.1 m on these graphs) of the JAX package's solve of the
-  same graph.
+* The graph lane over the same detections with the port's solver at the
+  JAX package's budget (`cg_iters=50`, the matrix-free CG that the sharded
+  optimizer mirrors): 30 closures, 2 switched off; each pose-graph solve
+  within 1e-4 m plus twice the reference's own spread (its result moved by
+  a one-ulp change of its input, up to 0.1 m on these graphs) of the JAX
+  package's solve of the same graph.
+* The graph lane with the port's default solve (each GN step's normal
+  equations solved exactly), which the system runs: every solve leaves at
+  most 1e-3 of the cost reduction unmade against the benchmark's f64
+  dense Gauss-Newton of the same graph (`slambench.steps.graph_excess`);
+  the budgeted CG leaves up to 2.9 on graphs the benchmark's revisit
+  reaches (PERF.md §6).
 """
 
 import functools
@@ -36,6 +43,7 @@ from lmono_tpu.lidar.registration import register as jregister
 from lmono_tpu.utils.lie import Pose as JPose
 from lmono_tpu_torch.lidar.registration import register
 from lmono_tpu_torch.utils.lie import Pose
+from slambench.steps import graph_excess
 from torch_estimator_cases import one_torch_thread  # noqa: F401
 
 _BANKS = ("edge", "edge_mask", "planar", "planar_mask", "bank_edge", "bank_edge_mask",
@@ -105,11 +113,26 @@ def test_graph_lane_solves_within_the_references_spread():
             spread = max(spread, float((rs.t[:n] - r.t[:n]).abs().max()))
         rows.append((float((r.t[:n] - g_out.t[:n]).abs().max()), spread))
 
-    s = lane.replay(d, lane.port_solve, against_reference)
+    def budgeted(g, iters, four_dof):
+        return lane.port_solve(g, iters, four_dof, cg_iters=50)
+
+    s = lane.replay(d, budgeted, against_reference)
     summary = lane.summary(s, d)
     print(summary, rows)
     assert summary["closures"] == 30 and summary["switched_off"] == 2
     assert s._n_nodes == len(d["node_frame"]) == 132 and len(rows) == s.graph_solves >= 4
     for gap, spread in rows:
         assert gap <= 1e-4 + 2 * spread, (gap, spread)
+    assert summary["ate_m"] < 0.6
+
+    excess = []
+
+    def left_unmade(g_in, g_out):
+        excess.append(graph_excess({"g": g_in._asdict(), "t": g_out.t, "ypr": g_out.ypr}))
+
+    s = lane.replay(d, lane.port_solve, left_unmade)
+    summary = lane.summary(s, d)
+    print(summary, excess)
+    assert summary["closures"] == 30 and len(excess) == s.graph_solves >= 4
+    assert max(excess) <= 1e-3, excess
     assert summary["ate_m"] < 0.6

@@ -10,6 +10,11 @@ Tolerances:
 * `solve_window`: poses within 1 mm and 1e-4 in q, LM attempts equal, and
   the same truth recovered as the JAX test asks (5 mm, 5e-3 rad);
 * `outlier_rejection`: the masks equal.
+
+On the CPU `solve_window` runs its attempts eagerly (no graph is captured,
+`replayed` 0); the host loop both paths share (`_attempt_loop`) is checked
+on its own.  The graphed solve is checked on the card
+(`tests/test_torch_solver_graph.py`).
 """
 
 import dataclasses
@@ -79,6 +84,7 @@ def test_solve_window_matches(seed):
     np.testing.assert_allclose(tsol.q.numpy(), np.asarray(jsol.q), rtol=0, atol=Q_ATOL)
     assert tdiag.iters == int(jdiag.iters)
     assert tdiag.readbacks == min(tdiag.iters, CFG.gn_iters - 1)
+    assert tdiag.replayed == 0
     np.testing.assert_allclose(float(tdiag.cost1), float(jdiag.cost1), rtol=1e-3,
                                atol=1e-3)
     # the truth comes back, as tests/test_window_solver.py asks of the reference
@@ -95,6 +101,62 @@ def test_attempt_budget_caps_the_readbacks():
     _, tdiag = ts_.solve_window(to_port(jstate), cfg)
     assert tdiag.iters == int(jdiag.iters) == 2
     assert tdiag.readbacks == 1          # the last attempt's flag is not read
+
+
+@pytest.mark.parametrize("gn_iters,done_at,iters,reads", [
+    (4, 2, 2, 2),          # done read after the second attempt
+    (4, None, 4, 3),       # never done: the last attempt's flag is not read
+    (3, 3, 3, 2),          # done at the last allowed attempt, not read
+    (1, None, 1, 0),
+])
+def test_lm_loop_reads_done_but_the_last(gn_iters, done_at, iters, reads):
+    made = []
+
+    def attempt(i):
+        made.append(i)
+        return (torch.tensor(i + 1 == done_at), torch.tensor(10.0 - i),
+                torch.tensor(5.0 - i))
+
+    cost0, cost, it, readbacks = ts_._attempt_loop(attempt, dataclasses.replace(
+        CFG, gn_iters=gn_iters))
+    assert made == list(range(iters)) and (it, readbacks) == (iters, reads)
+    assert float(cost0) == 10.0 and float(cost) == 5.0 - (iters - 1)
+
+
+def test_graph_key_follows_shapes_and_config():
+    def key(cfg):
+        return ts_._graph_key(ts_.WindowState.init(cfg, device="cpu"), cfg)
+
+    wide = dataclasses.replace(CFG, max_tracks=150)
+    assert key(CFG) == key(dataclasses.replace(CFG))
+    assert len({key(CFG), key(wide), key(dataclasses.replace(CFG, window_size=6)),
+                key(dataclasses.replace(CFG, lm_step_max=0.5))}) == 4
+    # what only the host loop reads, or nothing, shares the graph
+    assert key(CFG) == key(dataclasses.replace(CFG, gn_iters=3, lm_lambda_init=1.0,
+                                               outlier_reproj_px=2.0))
+    # the CPU keeps no graph
+    before = dict(ts_._GRAPHS)
+    _, diag = ts_.solve_window(to_port(perturb(window_problem(seed=0)[0], seed=5)),
+                               dataclasses.replace(CFG, gn_iters=2))
+    assert diag.replayed == 0 and ts_._GRAPHS == before
+
+
+def test_graph_key_holds_every_field_the_attempt_reads():
+    """Each configuration field one attempt reads (on the CPU, through a
+    recording stand-in for the configuration) is in the graph's key, so no
+    two configurations that the captured kernels tell apart share a graph."""
+    read = set()
+
+    class Recording:
+        def __getattr__(self, name):
+            read.add(name)
+            return getattr(CFG, name)
+
+    state = to_port(perturb(window_problem(seed=0)[0], seed=5))
+    lam = torch.tensor(CFG.lm_lambda_init)
+    ts_._attempt(state, lam, Recording())
+    assert {"lm_step_max", "cauchy_c", "lm_cost_tol"} <= read
+    assert read <= set(ts_._GRAPH_FIELDS), read - set(ts_._GRAPH_FIELDS)
 
 
 def test_outlier_rejection_matches():
