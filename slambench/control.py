@@ -57,9 +57,8 @@ def control_answers(drive, ans: reference.Answers) -> reference.Answers:
         uv, alive, cnt = ans.tracks
         rows = [uv[0].float()]
         for w in range(1, uv.shape[0]):
-            u1, _ = sim.reproject_pixels(scene, (cam[0][w - 1], cam[1][w - 1]),
-                                         (cam[0][w], cam[1][w]), drive.cam,
-                                         uv[w - 1].to(LOW))
+            u1, _ = drive.reproject((cam[0][w - 1], cam[1][w - 1]), (cam[0][w], cam[1][w]),
+                                    uv[w - 1].to(LOW), scene=scene)
             rows.append(u1.float())
         out.tracks = (torch.stack(rows), alive, cnt)
     if ans.handeye is not None:

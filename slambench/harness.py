@@ -37,12 +37,15 @@ import torch
 
 from slambench import reference
 from slambench.manifest import HERE, Cell
+from slambench.traffic import lens
 from slambench.traffic.drive import Drive
 
 SCAN = ("points", "ranges", "valid")
 FORBIDDEN = {"jax", "jaxlib", "flax", "lmono_tpu"}
 PORT = "lmono_tpu_torch"
-REFERENCE_FILES = ("reference.py", "steps.py", "traffic/sim.py", "traffic/drive.py")
+REFERENCE_FILES = ("reference.py", "steps.py", "traffic/sim.py", "traffic/drive.py",
+                   "traffic/figure8.py", "traffic/lens.py")
+CLOSURE_CHECKS = ("closure_deg", "graph_excess")   # limits that make a cell close loops
 GRAPH_FIELDS = ("t", "ypr", "seq_dt", "seq_dyaw", "seq_mask", "loop_i", "loop_j",
                 "loop_dt", "loop_dyaw", "loop_mask", "loop_w", "n_nodes")
 
@@ -239,7 +242,13 @@ def _port_key(root: Path, cell: Cell) -> str:
             h.update(f.read_bytes())
     h.update(json.dumps(cell.config["system"], sort_keys=True).encode())
     h.update(json.dumps(cell.traffic, sort_keys=True).encode())
-    h.update((HERE / "traffic" / "sim.py").read_bytes())
+    drive_files = ["sim.py"]
+    if cell.traffic["generator"] == "figure8":
+        drive_files.append("figure8.py")
+    if lens.lens_of(cell.config["system"]["camera"]) is not None:
+        drive_files.append("lens.py")
+    for name in drive_files:
+        h.update((HERE / "traffic" / name).read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -262,6 +271,21 @@ def history_state(root: Path, cell: Cell, drive: Drive, make_system, log,
     log(f"history: {drive.history} frames run and saved in "
         f"{time.perf_counter() - t0:.1f} s to {path.name}")
     return path
+
+
+def check_calibrated(system, est_cfg: dict) -> None:
+    """A rig that calibrates itself (estimate_laser 2) must come out of its
+    history with the hand-eye's extrinsic adopted and the window's
+    `fine_times` refinements made; a run that never calibrated is a failed
+    run, not a fast one."""
+    if est_cfg["estimate_laser"] != 2:
+        return
+    est = system.front.state.est
+    adopted = bool(est.handeye.converged)
+    refines = int(est.window.ex_refines)
+    if not adopted or refines < est_cfg["fine_times"]:
+        raise RuntimeError(f"the history left the rig uncalibrated: hand-eye adopted "
+                           f"{adopted}, {refines} of {est_cfg['fine_times']} refinements")
 
 
 def import_guard() -> list:
@@ -397,14 +421,15 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     drive = Drive(traffic, cell.config["system"], dev)
     rec = Recorder()
     make_system = lambda: SlamSystem(cfg, device=dev)   # noqa: E731
-    loops_expected = bool(traffic["history"])
+    loops_expected = any(k in cell.limits for k in CLOSURE_CHECKS)
     with Patches() as patches:
-        if loops_expected:
+        if traffic["history"]:
             ckpt = history_state(root, cell, drive, make_system, log, bench_dir)
         frames = drive.stage(seed)
         system = make_system()
-        if loops_expected:
+        if traffic["history"]:
             system.load_checkpoint(str(ckpt))
+            check_calibrated(system, cell.config["system"]["estimator"])
         history = drive.history
 
         def seen_at(node: int) -> int:
@@ -498,6 +523,8 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
         # printed beside the numbers: a yaw-only drive must leave it at 0
         readings["handeye_adopted_frames"] = float(sum(
             bool(f["handeye_converged"]) for f in view["front"]))
+        readings["extrinsic_deg"] = reference.extrinsic_gap(view["front"][-1]["ex_q"],
+                                                            drive.T_CL[1])
     ok, checks = reference.compare(readings, cell.limits)
     units = {e["name"]: e["unit"] for e in cell.end_to_end}
     units.update({p["name"]: p["unit"] for p in cell.per_layer})

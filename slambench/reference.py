@@ -17,6 +17,10 @@ from the drive's truth, which the benchmark makes itself from the seed:
 * `handeye_deg`: the median gap between the camera rotation the hand-eye's
   relative pose gives a frame pair and the truth's (printed, not compared:
   no bfloat16 reference of a 1.4° turn fails it);
+* `extrinsic_deg`: the angle between the window's camera-from-laser
+  rotation at the window's last frame and the rig's (`extrinsic_gap`;
+  printed, not compared: where the rig calibrates itself, what it found is
+  the drive's history's, the same on every seed);
 * `handeye_steps`: the window frames on which the hand-eye's update of its
   own state differs from the reference's: the rotation pair admitted or
   refused by the angle gate, its slot in the ring, the count, and an
@@ -66,7 +70,7 @@ from typing import Optional
 import torch
 
 from slambench import steps
-from slambench.traffic import sim
+from slambench.traffic import lens, sim
 
 NONE_READING = 1e9       # a number whose question the run never answered
 _HP = (73856093, 19349663, 83492791)   # the voxel hash's primes
@@ -78,7 +82,7 @@ class Answers:
     positions 0..n-1; row 0 of each per-frame array is the frame before
     the window (position -1)."""
 
-    idx: list                                  # circuit index per row
+    idx: list                                  # drive index per row
     laser: tuple                               # (t (n+1,3), q (n+1,4))
     pose: tuple                                # the estimator's, same shapes
     tracks: Optional[tuple] = None             # (uv, alive, cnt) (n+1, N, ...)
@@ -138,8 +142,7 @@ def track_gap(drive, tracks, cam_true, series=None) -> float:
         carried = alive[w] & (cnt[w] >= 2)
         prev = (cam_true[0][w - 1], cam_true[1][w - 1])
         cur = (cam_true[0][w], cam_true[1][w])
-        truth, hit = sim.reproject_pixels(drive.scene, prev, cur, drive.cam,
-                                          uv[w - 1].float())
+        truth, hit = drive.reproject(prev, cur, uv[w - 1].float())
         m = carried & hit
         if int(m.sum()) < 5:
             continue
@@ -222,6 +225,11 @@ def handeye_gap(handeye, cam_true, series=None) -> float:
     return float(err.median()) if err.numel() else NONE_READING
 
 
+def extrinsic_gap(q_ex, q_true) -> float:
+    """Angle (degrees) between a camera-from-laser rotation and the rig's."""
+    return float(_angle_deg(sim.quat_mul(sim.quat_conj(q_ex.float()), q_true.float())))
+
+
 def hash_merge(bank, new, voxel: float, dtype=torch.float32):
     """The voxel-hash merge, written out: each point's voxel hashes to one
     slot; occupied slots keep their point; of several new points for one
@@ -245,17 +253,22 @@ def hash_merge(bank, new, voxel: float, dtype=torch.float32):
     return out_p, out_c, mask | won
 
 
-def backproject(depth, cam: dict, T_WC, dtype=torch.float32):
+def backproject(depth, cam: dict, T_WC, dtype=torch.float32, lens_k=None):
     """The map's pixels (every second row and column, at their centres, as
     the port's `backproject_colored`) lifted at their depth and moved to the
-    world: (points (P, 3), camera-frame y (P,))."""
+    world: (points (P, 3), camera-frame y (P,)).  lens_k: the camera's
+    distortion, which the lift inverts (`lens.lift`), or None."""
     H, W = depth.shape
     dev = depth.device
     vv, uu = torch.meshgrid(torch.arange(0, H, 2, device=dev),
                             torch.arange(0, W, 2, device=dev), indexing="ij")
     z = depth[vv, uu].reshape(-1).to(dtype)
-    x = ((uu.reshape(-1).to(dtype) + 0.5) - cam["cx"]) / cam["fx"]
-    y = ((vv.reshape(-1).to(dtype) + 0.5) - cam["cy"]) / cam["fy"]
+    if lens_k is None:
+        x = ((uu.reshape(-1).to(dtype) + 0.5) - cam["cx"]) / cam["fx"]
+        y = ((vv.reshape(-1).to(dtype) + 0.5) - cam["cy"]) / cam["fy"]
+    else:
+        x, y = (c.to(dtype) for c in lens.lift(cam, lens_k, uu.reshape(-1) + 0.5,
+                                               vv.reshape(-1) + 0.5))
     pc = torch.stack([x * z, y * z, z], -1)
     return sim.apply((T_WC[0].to(dtype), T_WC[1].to(dtype)), pc).float(), pc[:, 1].float()
 
@@ -269,8 +282,7 @@ def judge_map(drive, m: dict, cfg_map: dict, control_dtype=None) -> dict:
     dev = m["depth"].device
     cam_true = drive.cam_pose(torch.tensor([m["idx"]]))
     cam_true = (cam_true[0][0].float(), cam_true[1][0].float())
-    _, z_true = sim.render_camera(drive.scene, cam_true,
-                                  sim.camera_ray_dirs(drive.cam, dev))
+    _, z_true = sim.render_camera(drive.scene, cam_true, drive.ray_dirs(dev))
     if control_dtype is None:
         depth, pts_w, bank_out = m["depth"], m["pts_w"], m["bank_out"]
     else:
@@ -279,15 +291,15 @@ def judge_map(drive, m: dict, cfg_map: dict, control_dtype=None) -> dict:
                  for k, v in drive.scene.items()}
         cam_lo = drive.cam_pose(torch.tensor([m["idx"]]), lo)
         _, depth = sim.render_camera(scene, (cam_lo[0][0], cam_lo[1][0]),
-                                     sim.camera_ray_dirs(drive.cam, dev, lo))
+                                     drive.ray_dirs(dev, lo))
         depth = depth.float()
-        pts_w, _ = backproject(m["depth"], drive.cam, m["T_WC"], dtype=lo)
+        pts_w, _ = backproject(m["depth"], drive.cam, m["T_WC"], dtype=lo, lens_k=drive.lens)
         bank_out = hash_merge(m["bank_in"], m["new"], cfg_map["map_voxel"], lo)
     out = {}
     ok = m["dmask"] & (z_true > 0)
     rel = torch.abs(depth - z_true)[ok] / z_true[ok]
     out["map_depth_rel"] = float(rel.median()) if rel.numel() else NONE_READING
-    ref_pts, y_c = backproject(m["depth"], drive.cam, m["T_WC"])
+    ref_pts, y_c = backproject(m["depth"], drive.cam, m["T_WC"], lens_k=drive.lens)
     z = m["depth"][::2, ::2].reshape(-1)
     keep = (m["dmask"][::2, ::2].reshape(-1) & (z > cfg_map["depth_min"])
             & (z < cfg_map["depth_max"]) & (y_c > -cfg_map["crop_height"]))

@@ -307,11 +307,15 @@ def graph_solve(g: dict, dtype=torch.float64):
 
 def graph_excess(solve: dict, control: bool = False, dtype=torch.float64) -> float:
     """Share of the cost reduction left unmade by one solve: (F(out) −
-    F(ref)) / (F(in) − F(ref)), F the squared residuals under the loop
+    F(ref)) / |F(in) − F(ref)|, F the squared residuals under the loop
     weights of the reference's optimum x_ref at the final kernel.  solve
     holds the graph before (`g`) and the program's optimized nodes (`t`,
     `ypr`); with control the reference's optimum in `dtype` stands in for
-    the program's.  0.0 where the graph before is already optimal."""
+    the program's.  Where the annealed kernel leaves x_ref above the graph
+    before under F (a start that was already optimal), the program is held
+    to the reference's answer on the scale of that gap, so that the
+    reference's own answer reads 0 there too.  0.0 where the two costs tie,
+    unless the program ends above the graph before."""
     g = solve["g"]
     G = _graph(g, torch.float64)
     x_ref = graph_solve(g)
@@ -323,7 +327,7 @@ def graph_excess(solve: dict, control: bool = False, dtype=torch.float64) -> flo
     w = _loop_weights(x_ref, G, ROBUST_C)
     cost = lambda x: float(torch.sum(_residuals(x, G, w) ** 2))   # noqa: E731
     f_in, f_out, f_ref = cost(G["x"]), cost(x_out), cost(x_ref)
-    room = f_in - f_ref
+    room = abs(f_in - f_ref)
     if not room > 1e-9 * max(f_ref, 1.0):
         return 0.0 if math.isfinite(f_out) and f_out <= f_in * (1 + 1e-6) + 1e-12 else 1e9
     return (f_out - f_ref) / room

@@ -7,6 +7,7 @@ import contextlib
 import json
 import math
 import types
+from pathlib import Path
 
 import pytest
 import torch
@@ -190,3 +191,45 @@ def test_unchanged_graph_is_not_correct():
     assert readings["graph_excess"] == pytest.approx(1.0)
     ok, _ = reference.compare(readings, {"graph_excess": 0.05})
     assert not ok
+
+
+def test_graph_excess_holds_a_start_already_optimal_to_the_reference():
+    """A solve captured on the card (`data/graph_tie.json`) whose start lies
+    below the reference's annealed optimum under the final kernel's weights:
+    the program's answer and the reference's own read near 0 (both read 1e9
+    when the program was held to the start alone), the bfloat16 control
+    does not, nor does an answer that ends above its start by more than the
+    limit's share of the gap past the reference's optimum."""
+    d = json.loads((Path(__file__).parent / "data" / "graph_tie.json").read_text())
+    exact = ("loop_i", "loop_j", "n_nodes", "seq_mask", "loop_mask")
+    g = {k: torch.tensor(v) if k in exact else torch.tensor(v, dtype=torch.float32)
+         for k, v in d["g"].items()}
+    solve = {"g": g, "t": torch.tensor(d["t"]), "ypr": torch.tensor(d["ypr"])}
+    G = steps._graph(g, torch.float64)
+    x_ref = steps.graph_solve(g)
+    w = steps._loop_weights(x_ref, G, steps.ROBUST_C)
+    cost = lambda x: float(torch.sum(steps._residuals(x, G, w) ** 2))   # noqa: E731
+    assert cost(G["x"]) < cost(x_ref)
+    ref_answer = {"g": g, "t": x_ref[:, :3].float(),
+                  "ypr": torch.cat([x_ref[:, 3:], g["ypr"][:, 1:]], -1).float()}
+    assert abs(steps.graph_excess(solve)) < 1e-2
+    assert abs(steps.graph_excess(ref_answer)) < 1e-2
+    assert steps.graph_excess(solve, control=True, dtype=control.LOW) > 0.1
+
+    # the reference's optimum with nodes 1.. pushed aside until F reads
+    # F(ref) + half the gap: above its start, below F(ref) + the gap
+    f_in, f_ref = cost(G["x"]), cost(x_ref)
+    target = f_ref + 0.5 * (f_ref - f_in)
+    push = torch.zeros_like(x_ref)
+    push[1:, :3] = 1.0
+    lo, hi = 0.0, 1e-3
+    while cost(x_ref + hi * push) < target:
+        hi *= 2.0
+    for _ in range(60):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (mid, hi) if cost(x_ref + mid * push) < target else (lo, mid)
+    x_off = x_ref + hi * push
+    assert f_in < cost(x_off) < f_ref + (f_ref - f_in)
+    off_answer = {"g": g, "t": x_off[:, :3].float(),
+                  "ypr": torch.cat([x_off[:, 3:], g["ypr"][:, 1:]], -1).float()}
+    assert 0.4 < steps.graph_excess(off_answer) < 0.6
